@@ -7,12 +7,14 @@ Runs from the root of a checkout and drives the port (`src/repro_torch`)
 only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
 
   1. device   torch/CUDA versions, the card's name and power limit;
-  2. build    every kernel of the main path, with nvcc, from the sources
-              in the checkout;
+  2. build    every kernel of the port (waterfill, tclosure, maxplus), one
+              nvcc each, all started together, from the sources in the
+              checkout, with ptxas's register and shared-memory report;
   3. kernels  each kernel against its plain-torch version on the card
-              (the shape sweep of tests/test_kernels.py and the main
-              path's shape), with its time, the plain version's, one
-              PyTorch library call's and the card's bound;
+              (the shape and dtype sweeps of tests/test_kernels.py and the
+              shape its path gives it at full width: bit equality for
+              tclosure and maxplus), with its time, the plain version's,
+              one PyTorch library call's and the card's bound;
   4. DES      the torch DES at the full width of megatron-462b (paper
               Table I: 1,024 GPUs, 32 pods) against the exact numpy DES,
               and a 48-genome batch against 48 single simulations;
@@ -20,7 +22,14 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               for 5 GA generations of 48 genomes, twice, with the kernel
               launch counts of the first run and identical topologies;
               and the GA on the card against the GA on the CPU at a small
-              size.
+              size;
+  6. xbound   Alg. 2 on megatron-462b with the closure by matrix squaring
+              (the tclosure kernel) against the bitset closure: the same
+              reachability and the same X-bar;
+  7. paths    all-pairs longest paths by max-plus squaring (the maxplus
+              kernel) on megatron-462b's dependency weights: row VIRTUAL
+              is Alg. 4's EST; and the Bellman check of
+              tests/test_kernels.py.
 
 Any failed check or error exits non-zero.  Without a CUDA device, or
 without the port beside it, it exits non-zero before printing a result.
@@ -30,6 +39,8 @@ the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -37,11 +48,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 F32_PEAK = 67e12        # H100 SXM float32 FLOP/s outside the tensor cores
+F32_INSTR = F32_PEAK / 2  # float32 instructions/s: the peak counts FMA as 2
+INT8_PEAK = 1979e12     # H100 SXM int8 tensor-core OP/s, dense
 HBM_RATE = 3.35e12      # H100 SXM HBM3 bytes/s
 KERNEL_RTOL = KERNEL_ATOL = 1e-5
 DES_RTOL = 5e-5
 # (C, N) sweep of tests/test_kernels.py:79-106
 SWEEP = [(3, 5), (100, 257), (130, 64), (1, 1), (128, 128), (34, 273)]
+# tclosure and maxplus sweeps of tests/test_kernels.py:16-57
+TC_SIZES = [1, 5, 64, 127, 128, 130, 257]
+TC_DENSITIES = [0.02, 0.2]
+MP_SHAPES = [(3, 4, 5), (64, 64, 64), (130, 17, 70), (1, 1, 1),
+             (128, 128, 128)]
+KERNELS = ("waterfill", "tclosure", "maxplus")
 
 
 def fail(msg: str) -> None:
@@ -69,8 +88,11 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / HBM_RATE, flops / F32_PEAK
+def bound_ms(bytes_moved: float, ops: float, rate: float = F32_PEAK
+             ) -> tuple[float, str]:
+    """The least time for the work: bytes at the HBM rate or `ops` at
+    `rate`, whichever is longer, and which of the two it is."""
+    t_bytes, t_ops = bytes_moved / HBM_RATE, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -96,14 +118,19 @@ def phase_device():
 
 def phase_build():
     import torch
-    from repro_torch.kernels import waterfill
+    from repro_torch.kernels import _build
     log(f"[build] repro_torch sets tf32: matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
         f"{torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    lib = waterfill.build()
-    log(f"[build] waterfill.cu -> {lib.relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    libs = _build.build(*KERNELS)
+    log(f"[build] {', '.join(f'{k}.cu' for k in KERNELS)} (one nvcc each, "
+        f"in parallel) in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        report = [line.split(":", 1)[-1].strip() for line in
+                  lib.with_suffix(".log").read_text().splitlines()
+                  if "Used" in line or "spill" in line]
+        log(f"[build] {lib.relative_to(ROOT)}: {'; '.join(report)}")
 
 
 def _check_close(name: str, got, want) -> tuple[float, float]:
@@ -118,7 +145,7 @@ def _check_close(name: str, got, want) -> tuple[float, float]:
     return max_abs, max_rel
 
 
-def phase_kernels() -> dict:
+def kernel_waterfill() -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import ops, waterfill
@@ -193,6 +220,159 @@ def phase_kernels() -> dict:
             "library_ms": library_ms}
 
 
+def _bits_equal(name: str, got, want) -> None:
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or not torch.equal(got, want):
+        diff = (got != want).sum().item() if got.shape == want.shape \
+            else "shape"
+        fail(f"{name}: kernel is not bit-equal to its plain version "
+             f"({got.dtype}{tuple(got.shape)} vs {want.dtype}"
+             f"{tuple(want.shape)}, {diff} entries differ)")
+
+
+def _paths_start(dag, device):
+    """The matrix longest_paths squares first on megatron-462b: the
+    dependency weights (float32) with the diagonal forced to 0."""
+    import torch
+    from repro_torch.core.pruning import dep_weights
+    w = torch.from_numpy(dep_weights(dag)).to(device, torch.float32)
+    return torch.maximum(w, torch.full_like(w, -1e30).fill_diagonal_(0.0))
+
+
+def kernel_tclosure(dag) -> tuple[dict, int]:
+    """The tclosure kernel against its plain version; returns its record
+    and the squaring steps of megatron-462b's closure."""
+    import numpy as np
+    import torch
+    from repro_torch.core.xbound import dep_adjacency
+    from repro_torch.kernels import ops, tclosure
+    from repro_torch.kernels.ref import tclosure_step_ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    cases = 0
+    for n in TC_SIZES:
+        for density in TC_DENSITIES:
+            a = torch.from_numpy(rng.random((n, n)) < density).to(dev)
+            for dtype in (torch.bool, torch.int8, torch.int32,
+                          torch.float32):
+                x = a.to(dtype)
+                _bits_equal(f"tclosure_step n={n} density={density} "
+                            f"{dtype}", ops.tclosure_step(x, backend="cuda"),
+                            tclosure_step_ref(x))
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] tclosure_step sweep {cases} cases (n x density x "
+        f"dtype): bit-equal to the plain version")
+
+    # full width: every squaring step of megatron-462b's closure
+    adj = dep_adjacency(dag, dev)
+    n = adj.shape[0]
+    a = adj
+    for steps in range(1, 2 + math.ceil(math.log2(n))):
+        got = ops.tclosure_step(a, backend="cuda")
+        _bits_equal(f"tclosure_step n={n} step {steps}", got,
+                    tclosure_step_ref(a))
+        if torch.equal(got, a):
+            break
+        a = got
+    else:
+        fail(f"tclosure_step n={n}: no fixed point in {steps} steps")
+    if not torch.equal(ops.tclosure_step(adj, backend="cuda"),
+                       ops.tclosure_step(adj, backend="cuda")):
+        fail("tclosure_step is not bit-identical run to run")
+    log(f"[kernels] tclosure_step n={n} (megatron-462b adjacency, "
+        f"{int(adj.sum())} edges): {steps} steps to the fixed point, each "
+        f"bit-equal to the plain version; bit-identical rerun")
+
+    f = adj.to(torch.float32)
+    ms = time_ms(lambda: tclosure.tclosure_step(adj))
+    plain_ms = time_ms(lambda: tclosure_step_ref(adj))
+    library_ms = time_ms(lambda: torch.matmul(f, f))
+    # bool in and out; the product counted as the dense int8 product an
+    # exact tensor-core version would run (2 n^3 at the int8 peak)
+    b_ms, b_by = bound_ms(2.0 * n * n, 2.0 * n ** 3, INT8_PEAK)
+    log(f"[kernels] tclosure_step n={n}: kernel {ms:.5f} ms/call, plain "
+        f"{plain_ms:.5f}, torch.matmul (f32) {library_ms:.5f}, bound "
+        f"{b_ms:.6f} ms ({b_by})")
+    dev_us = {name: _device_us_per_call(fn) for name, fn in (
+        ("kernel", lambda: tclosure.tclosure_step(adj)),
+        ("plain", lambda: tclosure_step_ref(adj)),
+        ("torch.matmul", lambda: torch.matmul(f, f)))}
+    log("[kernels] device time per call (profiler): " + ", ".join(
+        f"{k} {v}" for k, v in dev_us.items()))
+    by_kernel = _device_us_by_kernel(lambda: tclosure.tclosure_step(adj))
+    log("[kernels] tclosure_step device time by kernel (profiler): "
+        + ", ".join(f"{k} {v:.3f} us" for k, v in by_kernel.items()))
+    return {"name": "tclosure.tclosure_step", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/tclosure.cu",
+            "replaces": "src/repro/kernels/tclosure.py:41",
+            "launches": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}, steps
+
+
+def kernel_maxplus(dag) -> tuple[dict, int]:
+    """The maxplus kernel against its plain version; returns its record
+    and the squaring steps of megatron-462b's longest paths."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import maxplus, ops
+    from repro_torch.kernels.ref import NEG_INF, maxplus_ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+
+    def sparse(m, k):
+        return torch.from_numpy(np.where(
+            rng.random((m, k)) < 0.4, rng.random((m, k)) * 10, NEG_INF)
+            .astype(np.float32)).to(dev)
+
+    for m, k, n in MP_SHAPES:
+        a, b = sparse(m, k), sparse(k, n)
+        _bits_equal(f"maxplus {m}x{k}x{n}", ops.maxplus(a, b, backend="cuda"),
+                    maxplus_ref(a, b))
+    torch.cuda.synchronize()
+    log(f"[kernels] maxplus sweep {len(MP_SHAPES)} shapes: bit-equal to "
+        f"the plain version")
+
+    # full width: every squaring step of longest_paths on megatron-462b
+    d0 = _paths_start(dag, dev)
+    n = d0.shape[0]
+    d = d0
+    for steps in range(1, 2 + math.ceil(math.log2(n))):
+        got = ops.maxplus(d, d, backend="cuda")
+        _bits_equal(f"maxplus {n}x{n}x{n} step {steps}", got,
+                    maxplus_ref(d, d))
+        if torch.allclose(got, d):
+            break
+        d = got
+    else:
+        fail(f"maxplus {n}x{n}x{n}: no fixed point in {steps} squarings")
+    if not torch.equal(ops.maxplus(d0, d0, backend="cuda"),
+                       ops.maxplus(d0, d0, backend="cuda")):
+        fail("maxplus is not bit-identical run to run")
+    log(f"[kernels] maxplus {n}x{n}x{n} (megatron-462b dependency "
+        f"weights): {steps} squarings to the fixed point, each bit-equal "
+        f"to the plain version; bit-identical rerun")
+
+    ms = time_ms(lambda: maxplus.maxplus(d0, d0))
+    plain_ms = time_ms(lambda: maxplus_ref(d0, d0), iters=20, warmup=3)
+    b_ms, b_by = bound_ms(4.0 * 3 * n * n, 2.0 * n ** 3, F32_INSTR)
+    log(f"[kernels] maxplus {n}x{n}x{n}: kernel {ms:.5f} ms/call, plain "
+        f"{plain_ms:.5f}, no library call, bound {b_ms:.6f} ms ({b_by})")
+    dev_us = {name: _device_us_per_call(fn, iters) for name, fn, iters in (
+        ("kernel", lambda: maxplus.maxplus(d0, d0), 50),
+        ("plain", lambda: maxplus_ref(d0, d0), 5))}
+    log("[kernels] device time per call (profiler): " + ", ".join(
+        f"{k} {v}" for k, v in dev_us.items()))
+    return {"name": "maxplus.maxplus", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/maxplus.cu",
+            "replaces": "src/repro/kernels/maxplus.py:40",
+            "launches": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}, steps
+
+
 def _device_busy_s(fn) -> float:
     """Seconds the device spent in kernels and copies during one call of
     `fn`, from a torch.profiler trace (0.0 when the trace holds no device
@@ -211,6 +391,25 @@ def _device_busy_s(fn) -> float:
 def _device_us_per_call(fn, iters: int = 50) -> str:
     busy_s = _device_busy_s(lambda: [fn() for _ in range(iters)])
     return f"{busy_s * 1e6 / iters:.3f} us" if busy_s else "not measured"
+
+
+def _device_us_by_kernel(fn, iters: int = 50) -> dict[str, float]:
+    """Device microseconds per call of `fn`, by kernel name, from a
+    torch.profiler trace of `iters` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            m = re.search(r"::(\w+)", ev.key)   # drop namespaces and types
+            out[m.group(1) if m else ev.key[:40]] = \
+                ev.device_time_total / iters
+    return out
 
 
 def _megatron_462b():
@@ -237,9 +436,9 @@ def _counts():
 
 
 def _reset_counts() -> None:
-    from repro_torch.kernels import waterfill
+    from repro_torch.kernels import maxplus, tclosure, waterfill
     from repro_torch.obs import REGISTRY
-    waterfill.launches = 0
+    waterfill.launches = tclosure.launches = maxplus.launches = 0
     REGISTRY.counter("des_event_trips_total").reset()
     REGISTRY.counter("des_fill_rounds_total").reset()
 
@@ -381,16 +580,127 @@ def phase_small_parity() -> None:
              f"{cpu.makespan}")
 
 
+def phase_xbound(dag, steps: int) -> tuple[int, float]:
+    """Alg. 2 with the closure by matrix squaring on the card against the
+    bitset closure, each run launching one kernel per squaring step;
+    returns the tclosure launches of the x_upper_bound run and the t_up
+    both runs share."""
+    import numpy as np
+    from repro_torch.core.des import DESProblem
+    from repro_torch.core.pruning import estimate_t_up
+    from repro_torch.core.xbound import (reachability_bitset,
+                                         reachability_kernel, x_upper_bound)
+    from repro_torch.kernels import tclosure
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    reach = reachability_kernel(dag)
+    t_kernel = time.perf_counter() - t0
+    launches = tclosure.launches
+    t0 = time.perf_counter()
+    want = reachability_bitset(dag)
+    t_bitset = time.perf_counter() - t0
+    log(f"[xbound] reachability n={dag.num_tasks}: kernel {t_kernel:.4f} s "
+        f"({launches} tclosure launches, {steps} squaring steps), bitset "
+        f"{t_bitset:.4f} s; {int(want.sum())} reachable pairs")
+    if not np.array_equal(reach, want):
+        fail(f"reachability on the kernel differs from the bitset in "
+             f"{int((reach != want).sum())} pairs")
+    if launches != steps:
+        fail(f"reachability: {launches} tclosure launches for {steps} "
+             f"squaring steps")
+
+    t_up = estimate_t_up(DESProblem(dag))
+    _reset_counts()             # the slice's path: its counts start at 0
+    t0 = time.perf_counter()
+    xbar = x_upper_bound(dag, t_up, closure_backend="kernel")
+    t_kernel = time.perf_counter() - t0
+    launches = tclosure.launches
+    t0 = time.perf_counter()
+    xbar_bitset = x_upper_bound(dag, t_up, closure_backend="bitset")
+    t_bitset = time.perf_counter() - t0
+    log(f"[xbound] x_upper_bound t_up {t_up!r} s: kernel closure "
+        f"{t_kernel:.3f} s ({launches} tclosure launches), bitset "
+        f"{t_bitset:.3f} s; X-bar sums to {int(xbar.sum())}")
+    if not np.array_equal(xbar, xbar_bitset):
+        fail("X-bar on the kernel closure differs from X-bar on the bitset")
+    if launches != steps:
+        fail(f"x_upper_bound: {launches} tclosure launches for {steps} "
+             f"squaring steps")
+    return launches, t_up
+
+
+def phase_paths(dag, t_up: float, steps: int) -> int:
+    """All-pairs longest paths by max-plus squaring on the card, one
+    launch per squaring step: row VIRTUAL against Alg. 4's EST, and the
+    Bellman check at n = 24; returns the maxplus launches of the
+    longest_paths run."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dag import VIRTUAL
+    from repro_torch.core.pruning import cal_task_time_windows, dep_weights
+    from repro_torch.kernels import maxplus, ops
+    from repro_torch.kernels.ref import NEG_INF
+
+    w = torch.from_numpy(dep_weights(dag)).to("cuda", torch.float32)
+    est, _ = cal_task_time_windows(dag, t_up)
+    _reset_counts()             # the slice's path: its counts start at 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = ops.longest_paths(w)
+    torch.cuda.synchronize()
+    t_lp = time.perf_counter() - t0
+    launches = maxplus.launches
+    row = lp[VIRTUAL].double().cpu().numpy()
+    err = float(np.abs(row - est).max())
+    atol = 1e-5 * float(est.max())
+    log(f"[paths] longest_paths n={dag.num_tasks}: {launches} maxplus "
+        f"launches, {steps} squaring steps, {t_lp:.4f} s; row VIRTUAL vs "
+        f"Alg. 4 EST: max abs err {err:.3e} (atol {atol:.3e}, max EST "
+        f"{float(est.max())!r} s)")
+    if not (row > NEG_INF / 2).all() or not err <= atol:
+        fail(f"longest_paths row VIRTUAL differs from the EST by {err} "
+             f"(> {atol}) or leaves a task unreached")
+    if launches != steps:
+        fail(f"longest_paths: {launches} maxplus launches for {steps} "
+             f"squaring steps")
+
+    # the Bellman check of tests/test_kernels.py:59-76
+    n = 24
+    rng = np.random.default_rng(24)
+    adj_mask = np.triu(rng.random((n, n)) < 0.2, k=1)
+    adj = np.where(adj_mask, rng.random((n, n)) * 5, NEG_INF) \
+        .astype(np.float32)
+    got = ops.longest_paths(torch.from_numpy(adj).cuda()).cpu().numpy()
+    dist = np.where(np.eye(n, dtype=bool), 0.0, NEG_INF)
+    for _ in range(n):
+        nd = dist.copy()
+        for i, j in zip(*np.nonzero(adj_mask)):
+            nd[:, j] = np.maximum(nd[:, j], dist[:, i] + adj[i, j])
+        dist = nd
+    mask = dist > NEG_INF / 2
+    if not np.allclose(got[mask], dist[mask], rtol=1e-5) \
+            or not (got[~mask] <= NEG_INF / 2 + 1).all():
+        fail("longest_paths on the card disagrees with the Bellman loop")
+    log(f"[paths] Bellman check n={n}: longest_paths on the card agrees "
+        f"(rtol 1e-5)")
+    return launches
+
+
 def main() -> int:
     phase_device()
     import torch
     phase_build()
-    record = phase_kernels()
     dag = _megatron_462b()
+    waterfill = kernel_waterfill()
+    tclosure, closure_steps = kernel_tclosure(dag)
+    maxplus, paths_steps = kernel_maxplus(dag)
     phase_des(dag)
-    record["launches"] = phase_plan(dag)
+    waterfill["launches"] = phase_plan(dag)
     phase_small_parity()
-    log(json.dumps({"kernels": [record]}))
+    tclosure["launches"], t_up = phase_xbound(dag, closure_steps)
+    maxplus["launches"] = phase_paths(dag, t_up, paths_steps)
+    log(json.dumps({"kernels": [waterfill, tclosure, maxplus]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,9 @@
 
 * `cal_task_time_windows` (Alg. 4): earliest start / latest completion per
   task from forward/backward longest-path propagation with minimum physical
-  durations tau_m = V_m / (F_m * B).
+  durations tau_m = V_m / (F_m * B).  `dep_weights` is the same forward
+  pass as a max-plus matrix: `repro_torch.kernels.ops.longest_paths` of it
+  has the EST in its row VIRTUAL.
 * `task_time_index_pruning` (Alg. 1): feasible interval-index windows
   [k_min, k_max] per task, combining whole-graph topological bounds with
   DES-profiled anchors for intermediate tasks.
@@ -19,6 +21,7 @@ import numpy as np
 
 from repro_torch.core.dag import VIRTUAL, CommDAG
 from repro_torch.core.des import DESProblem, DESResult, simulate
+from repro_torch.kernels.ref import NEG_INF
 
 
 def min_durations(dag: CommDAG) -> np.ndarray:
@@ -31,6 +34,19 @@ def min_durations(dag: CommDAG) -> np.ndarray:
 
 
 # ------------------------------------------------------------------- Alg. 4
+def dep_weights(dag: CommDAG) -> np.ndarray:
+    """W[pre, succ] = max over deps of tau[pre] + delta (float64), NEG_INF
+    where no dep: the forward pass of Alg. 4 as one max-plus step."""
+    n = dag.num_tasks
+    tau = min_durations(dag)
+    pre = np.array([d.pre for d in dag.deps], dtype=np.int64)
+    succ = np.array([d.succ for d in dag.deps], dtype=np.int64)
+    delta = np.array([d.delta for d in dag.deps], dtype=np.float64)
+    w = np.full((n, n), NEG_INF)
+    np.maximum.at(w, (pre, succ), tau[pre] + delta)
+    return w
+
+
 def cal_task_time_windows(dag: CommDAG, t_up: float
                           ) -> tuple[np.ndarray, np.ndarray]:
     """Earliest start time and latest completion time per task (Alg. 4)."""

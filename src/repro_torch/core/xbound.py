@@ -11,16 +11,22 @@ Transitive closure backends:
   * 'bitset'  -- topological DP over numpy uint64 bitsets, O(|D| * n / 64);
                  the fast CPU path used by default.
   * 'kernel'  -- repeated boolean matrix squaring (the paper's "via matrix
-                 squaring"); it needs the tclosure kernel, which the port
-                 has not ported yet, so it raises NotImplementedError.
+                 squaring") through `repro_torch.kernels.ops
+                 .transitive_closure`: the tclosure kernel on the CUDA
+                 device, its plain-torch version on the CPU.  It runs on
+                 the CUDA device unless the caller names another
+                 (``device="cpu"``); with none available it raises.
+Both are cross-validated in tests.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.dag import CommDAG
 from repro_torch.core.pruning import cal_task_time_windows, estimate_t_up
 from repro_torch.core.des import DESProblem
+from repro_torch.kernels import ops
 
 
 # ---------------------------------------------------------------- closures
@@ -40,21 +46,37 @@ def reachability_bitset(dag: CommDAG) -> np.ndarray:
     return bits[:, :n].astype(bool).T
 
 
-def reachability_kernel(dag: CommDAG) -> np.ndarray:
-    """Closure via repeated boolean matrix squaring: the tclosure kernel,
-    which the port has not brought to Hopper yet."""
-    raise NotImplementedError(
-        "reachability(backend='kernel') needs the tclosure kernel, still to "
-        "be ported (ROADMAP.md: modules item 9, kernels item 2); use "
-        "backend='auto' or 'bitset'")
+def dep_adjacency(dag: CommDAG, device: str | torch.device) -> torch.Tensor:
+    """The 0/1 dependency matrix A[pre, succ] of D, bool (n, n) on
+    `device`."""
+    n = dag.num_tasks
+    adj = torch.zeros((n, n), dtype=torch.bool, device=device)
+    pre = torch.tensor([d.pre for d in dag.deps], dtype=torch.long)
+    succ = torch.tensor([d.succ for d in dag.deps], dtype=torch.long)
+    adj[pre.to(adj.device), succ.to(adj.device)] = True
+    return adj
 
 
-def reachability(dag: CommDAG, backend: str = "auto") -> np.ndarray:
+def reachability_kernel(dag: CommDAG, device: str | torch.device | None = None
+                        ) -> np.ndarray:
+    """Closure via repeated boolean matrix squaring (the tclosure kernel on
+    the CUDA device; ``device="cpu"`` runs its plain version)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "reachability_kernel runs on a CUDA device and none is "
+                "available; pass device='cpu' to run it on the CPU")
+        device = "cuda"
+    return ops.transitive_closure(dep_adjacency(dag, device)).cpu().numpy()
+
+
+def reachability(dag: CommDAG, backend: str = "auto",
+                 device: str | torch.device | None = None) -> np.ndarray:
     if backend == "kernel":
-        return reachability_kernel(dag)
+        return reachability_kernel(dag, device)
     if backend == "bitset" or dag.num_tasks > 1024 or backend == "auto":
         return reachability_bitset(dag)
-    return reachability_kernel(dag)
+    return reachability_kernel(dag, device)
 
 
 # -------------------------------------------------------------------- MWIS
@@ -123,14 +145,16 @@ def _mwis_greedy(weights: np.ndarray, adj: np.ndarray) -> float:
 # ------------------------------------------------------------------- Alg. 2
 def x_upper_bound(dag: CommDAG, t_up: float | None = None,
                   closure_backend: str = "auto",
-                  exact_limit: int = 40) -> np.ndarray:
-    """Upper-bound matrix X̄ for the circuits between every pod pair."""
+                  exact_limit: int = 40,
+                  device: str | torch.device | None = None) -> np.ndarray:
+    """Upper-bound matrix X̄ for the circuits between every pod pair;
+    ``device`` is where the 'kernel' closure runs (see `reachability`)."""
     P = dag.cluster.num_pods
     xbar = np.zeros((P, P), dtype=np.int64)
     if t_up is None:
         t_up = estimate_t_up(DESProblem(dag))
     est, lct = cal_task_time_windows(dag, t_up)
-    reach = reachability(dag, closure_backend)
+    reach = reachability(dag, closure_backend, device)
     excl = reach | reach.T  # mutual exclusivity: dependency-linked pairs
 
     for (u, v), tids in dag.tasks_on_pair().items():

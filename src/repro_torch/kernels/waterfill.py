@@ -8,11 +8,11 @@ lanes' ``level`` and ``unfrozen`` vectors.  It replaces the Pallas kernel
 `repro/kernels/waterfill.py:47 fill_matvec`; the source, with what bounds
 it on the card, is `csrc/waterfill.cu`.
 
-The kernel is built with ``nvcc`` at first use from that source alone,
-into ``build/kernels/`` at the repository root (listed in ``.gitignore``),
-and loaded with ``ctypes``.  This module launches the kernel and nothing
-else: the plain version lives in `repro_torch.kernels.ref`, and the choice
-between the two is `repro_torch.kernels.ops`'s.
+The kernel is built with ``nvcc`` at first use from that source alone and
+loaded with ``ctypes`` (`repro_torch.kernels._build`).  This module
+launches the kernel and nothing else: the plain version lives in
+`repro_torch.kernels.ref`, and the choice between the two is
+`repro_torch.kernels.ops`'s.
 
 `launches` counts the kernel's launches, so a run can show that its main
 path went through the kernel.
@@ -20,66 +20,19 @@ path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
+
 launches = 0
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "waterfill.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
-_lib: ctypes.CDLL | None = None
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin): cannot build waterfill.cu")
-    return str(path)
-
-
-def build() -> Path:
-    """Compile `csrc/waterfill.cu` into a shared library named by the
-    source's hash (a rebuilt source never loads a stale library) and
-    return its path.  Idempotent; the compiler's output is raised on
-    failure."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"waterfill-{digest}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.waterfill_fill_matvec
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _kernel():
+    return _build.function(
+        "waterfill", "waterfill_fill_matvec",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -118,7 +71,7 @@ def fill_matvec(w: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     if out.numel():
         with torch.cuda.device(w.device):
             stream = torch.cuda.current_stream(w.device).cuda_stream
-            err = _library().waterfill_fill_matvec(
+            err = _kernel()(
                 w.data_ptr(), rhs.data_ptr(), out.data_ptr(), batch, c, n,
                 r, stream)
         if err != 0:
