@@ -13,16 +13,26 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
   3. kernels  each kernel against its plain-torch version on the card
               (the shape and dtype sweeps of tests/test_kernels.py and the
               shape its path gives it at full width: bit equality for
-              tclosure and maxplus), with its time, the plain version's,
-              one PyTorch library call's and the card's bound;
+              tclosure and maxplus; the fused filling kernel over a sweep
+              and on megatron-462b's CSR at 48 lanes, with equal rounds),
+              with its time, the plain version's, one PyTorch library
+              call's and the card's bound;
   4. DES      the torch DES at the full width of megatron-462b (paper
-              Table I: 1,024 GPUs, 32 pods) against the exact numpy DES,
-              and a 48-genome batch against 48 single simulations;
+              Table I: 1,024 GPUs, 32 pods) against the exact numpy DES on
+              the fused path ('cuda': one fill_maxmin launch per trip) and
+              on the per-round path ('cuda-round': one fill_round launch
+              per round); a 48-genome batch in turns on both paths (round,
+              fused, fused, round) with wall time, device busy time, idle
+              share and host syncs per trip, the host's torch ops and the
+              device's kernels of one fused trip, and the batch against
+              48 single simulations;
   5. plan     the slice end to end: plan(PlanRequest(method="delta-fast"))
-              for 5 GA generations of 48 genomes, twice, with the kernel
-              launch counts of the first run and identical topologies;
-              and the GA on the card against the GA on the CPU at a small
-              size;
+              for 5 GA generations of 48 genomes on the fused path, on the
+              per-round path, and on the fused path again (s/generation of
+              each, the kernel launch counts of each path, identical
+              topologies from the two fused runs); and the GA on the card
+              against the GA on the CPU at a small size (the same
+              topology);
   6. xbound   Alg. 2 on megatron-462b with the closure by matrix squaring
               (the tclosure kernel) against the bitset closure: the same
               reachability and the same X-bar;
@@ -61,6 +71,16 @@ TC_DENSITIES = [0.02, 0.2]
 MP_SHAPES = [(3, 4, 5), (64, 64, 64), (130, 17, 70), (1, 1, 1),
              (128, 128, 128)]
 KERNELS = ("waterfill", "tclosure", "maxplus")
+# fill_maxmin sweep of tests/test_torch_cuda.py: (lanes S, tasks N,
+# constraints C, entries E, density of the active sets); the last needs
+# 93 KB of shared memory, above the 48 KB default
+MAXMIN_SWEEP = [(1, 1, 1, 1, 1.0), (3, 5, 3, 7, 0.5), (8, 64, 8, 100, 0.3),
+                (5, 257, 40, 600, 0.8), (2, 1000, 200, 3000, 0.05),
+                (4, 4000, 100, 8000, 0.1)]
+LANES = 48              # the GA population of the main path
+# plan() on megatron-462b (48 genomes, 5 generations, seed 0) on the
+# per-round kernel path, as PERF.md records it
+ROUND_PATH_PORTS, ROUND_PATH_MAKESPAN = 122, 93.60538748389672
 
 
 def fail(msg: str) -> None:
@@ -220,6 +240,115 @@ def kernel_waterfill() -> dict:
             "library_ms": library_ms}
 
 
+def _maxmin_instance(rng, s, n, c, e, density, dev):
+    """A random CSR incidence in which every task sits in a constraint
+    (when E >= N), with S lanes of active sets and capacities."""
+    import numpy as np
+    import torch
+    con = np.concatenate([np.arange(min(n, e)) % c,
+                          rng.integers(0, c, max(e - n, 0))])
+    task = np.concatenate([np.arange(min(n, e)),
+                           rng.integers(0, n, max(e - n, 0))])
+    order = np.argsort(con, kind="stable")
+    con_ptr = np.zeros(c + 1, dtype=np.int32)
+    con_ptr[1:] = np.cumsum(np.bincount(con, minlength=c))
+    tensors = (con_ptr, task[order].astype(np.int32),
+               rng.uniform(0.1, 3.0, e).astype(np.float32),
+               rng.random((s, n)) < density,
+               rng.uniform(0.1, 5.0, (s, c)).astype(np.float32),
+               rng.uniform(1.0, 4.0, n).astype(np.float32))
+    return [torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+            for t in tensors]
+
+
+def _check_maxmin(name: str, args) -> tuple[float, float, list]:
+    """fill_maxmin against its plain version: rates within the tolerance
+    and bit-equal (both sum in one order and round every operation once),
+    the same rounds on every lane."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import fill_maxmin_ref
+    rates, rounds = ops.fill_maxmin(*args, backend="cuda")
+    want, want_rounds = fill_maxmin_ref(*args)
+    torch.cuda.synchronize()
+    a, r = _check_close(name, rates, want)
+    _bits_equal(name, rates, want)
+    if not torch.equal(rounds, want_rounds):
+        fail(f"{name}: kernel rounds {rounds.tolist()} differ from the "
+             f"plain version's {want_rounds.tolist()}")
+    again, again_rounds = ops.fill_maxmin(*args, backend="cuda")
+    if not (torch.equal(again, rates) and torch.equal(again_rounds, rounds)):
+        fail(f"{name}: fill_maxmin is not bit-identical run to run")
+    return a, r, rounds.tolist()
+
+
+def kernel_maxmin(dag) -> dict:
+    """The fused filling kernel against its plain version over the sweep
+    and on megatron-462b's CSR at 48 lanes of random active sets and
+    caps, with its time and bound."""
+    import numpy as np
+    import torch
+    from repro_torch.core.des import DESProblem
+    from repro_torch.core.des_torch import TorchDES, _incidence_csr
+    from repro_torch.kernels import waterfill
+    from repro_torch.kernels.ref import fill_maxmin_ref
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    worst = 0.0
+    for shape in MAXMIN_SWEEP:
+        a, _, _ = _check_maxmin(f"fill_maxmin {shape}",
+                                _maxmin_instance(rng, *shape, dev))
+        worst = max(worst, a)
+    log(f"[kernels] fill_maxmin sweep {len(MAXMIN_SWEEP)} shapes (S, N, C, "
+        f"E, density): bit-equal to the plain version (max abs err "
+        f"{worst:.3e}, rtol/atol {KERNEL_RTOL:g}), rounds equal, "
+        f"bit-identical reruns")
+
+    # the main path's shape: megatron-462b's padded CSR, 48 lanes
+    des = TorchDES(DESProblem(dag))
+    a = des.arrays
+    con_ptr, ent_task, ent_w = _incidence_csr(a)
+    S, N, C, E = LANES, a.n, a.num_cons, ent_task.numel()
+    real = a.task_valid.cpu().numpy().copy()
+    real[0] = False
+    active = (rng.random((S, N)) < rng.uniform(0.02, 0.5, (S, 1))) & real
+    caps = np.concatenate([rng.integers(1, 5, (S, a.num_link_cons)),
+                           np.ones((S, C - a.num_link_cons))], 1)
+    args = [con_ptr, ent_task, ent_w, torch.from_numpy(active).to(dev),
+            torch.from_numpy(caps.astype(np.float32)).to(dev), a.flows]
+    max_abs, max_rel, rounds = _check_maxmin("fill_maxmin main shape", args)
+    log(f"[kernels] fill_maxmin S={S} N={N} C={C} E={E} (megatron-462b CSR,"
+        f" max {int((con_ptr[1:] - con_ptr[:-1]).max())} entries per "
+        f"constraint, {waterfill.maxmin_smem_bytes(N, C, E)} bytes of "
+        f"shared memory per block): bit-equal to the plain version (max abs "
+        f"err {max_abs:.3e}, max rel err {max_rel:.3e}); rounds per lane "
+        f"{min(rounds)}-{max(rounds)} (sum {sum(rounds)}), equal to the plain"
+        f" version's; bit-identical rerun")
+
+    ms = time_ms(lambda: waterfill.fill_maxmin(*args))
+    plain_ms = time_ms(lambda: fill_maxmin_ref(*args), iters=20, warmup=3)
+    # bytes: the CSR, active, caps and flows read once, rates and rounds
+    # written once; operations: per lane and round two FMAs per entry,
+    # a subtraction, a division and a min per constraint, an add per task
+    b_ms, b_by = bound_ms(
+        4.0 * (C + 1) + 8.0 * E + S * N + 4.0 * S * C + 4.0 * N
+        + 4.0 * S * N + 4.0 * S, sum(rounds) * (4.0 * E + 3.0 * C + N))
+    log(f"[kernels] fill_maxmin S={S} N={N} C={C} E={E}: kernel {ms:.5f} ms"
+        f"/call, plain {plain_ms:.5f}, no library call, bound {b_ms:.6f} "
+        f"ms ({b_by})")
+    dev_us = {name: _device_us_per_call(fn, iters) for name, fn, iters in (
+        ("kernel", lambda: waterfill.fill_maxmin(*args), 50),
+        ("plain", lambda: fill_maxmin_ref(*args), 5))}
+    log("[kernels] device time per call (profiler): " + ", ".join(
+        f"{k} {v}" for k, v in dev_us.items()))
+    return {"name": "waterfill.fill_maxmin", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/waterfill.cu",
+            "replaces": "src/repro/kernels/waterfill.py:47",
+            "launches": None, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
 def _bits_equal(name: str, got, want) -> None:
     import torch
     if got.shape != want.shape or got.dtype != want.dtype \
@@ -373,10 +502,8 @@ def kernel_maxplus(dag) -> tuple[dict, int]:
             "library_ms": None}, steps
 
 
-def _device_busy_s(fn) -> float:
-    """Seconds the device spent in kernels and copies during one call of
-    `fn`, from a torch.profiler trace (0.0 when the trace holds no device
-    time)."""
+def _profile(fn):
+    """A torch.profiler trace (host and device) of one call of `fn`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -384,8 +511,37 @@ def _device_busy_s(fn) -> float:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def _busy_s(prof) -> float:
+    """Seconds the device spent in kernels and copies in a trace (0.0 when
+    it holds no device time)."""
+    import torch
     return 1e-6 * sum(ev.device_time_total for ev in prof.events()
                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _device_busy_s(fn) -> float:
+    """Seconds the device spent in kernels and copies during one call of
+    `fn`, from a torch.profiler trace."""
+    return _busy_s(_profile(fn))
+
+
+def _host_syncs(fn) -> int:
+    """Host syncs during one call of `fn`: the warnings of
+    torch.cuda.set_sync_debug_mode("warn"), each one counted."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def _device_us_per_call(fn, iters: int = 50) -> str:
@@ -431,6 +587,7 @@ def _counts():
     from repro_torch.kernels import waterfill
     from repro_torch.obs import REGISTRY
     return {"launches": waterfill.launches,
+            "maxmin": waterfill.maxmin_launches,
             "trips": REGISTRY.counter("des_event_trips_total").value(),
             "rounds": REGISTRY.counter("des_fill_rounds_total").value()}
 
@@ -438,122 +595,248 @@ def _counts():
 def _reset_counts() -> None:
     from repro_torch.kernels import maxplus, tclosure, waterfill
     from repro_torch.obs import REGISTRY
-    waterfill.launches = tclosure.launches = maxplus.launches = 0
+    waterfill.launches = waterfill.maxmin_launches = 0
+    tclosure.launches = maxplus.launches = 0
     REGISTRY.counter("des_event_trips_total").reset()
     REGISTRY.counter("des_fill_rounds_total").reset()
 
 
+def _check_path(name: str, c: dict) -> None:
+    """The launch counts of one DES run on `name`'s path: the fused path
+    launches fill_maxmin once per trip and fill_round never; the
+    per-round path fill_round once per round and fill_maxmin never; the
+    plain path neither."""
+    if name == "ref":
+        if c["maxmin"] or c["launches"] or c["trips"] == 0:
+            fail(f"plain path: {c['maxmin']} fill_maxmin and "
+                 f"{c['launches']} fill_round launches")
+    elif name == "cuda":
+        if c["maxmin"] != c["trips"] or c["trips"] == 0 \
+                or c["launches"] != 0:
+            fail(f"fused path: {c['maxmin']} fill_maxmin launches for "
+                 f"{c['trips']:.0f} trips and {c['launches']} fill_round "
+                 f"launches")
+    elif c["launches"] != c["rounds"] or c["launches"] == 0 \
+            or c["maxmin"] != 0:
+        fail(f"per-round path: {c['launches']} fill_round launches for "
+             f"{c['rounds']:.0f} filling rounds and {c['maxmin']} "
+             f"fill_maxmin launches")
+
+
+def _trip_ops(prof, trips: float, wall_s: float, top: int = 16) -> None:
+    """The host's torch ops of one profiled run, by self CPU time, per
+    trip (torch.profiler's CPU side; its own cost inflates the times, and
+    what is not a torch op -- Python, the ctypes launch -- is the rest of
+    the wall time), and the device's kernels of the same run."""
+    import torch
+    rows = [(ev.key, ev.count, ev.self_cpu_time_total)
+            for ev in prof.key_averages() if ev.count]
+    rows.sort(key=lambda r: -r[2])
+    total_us = sum(r[2] for r in rows)
+    calls = sum(r[1] for r in rows if r[0].startswith("aten::"))
+    log(f"[des] host ops of one fused batch per trip (torch.profiler CPU "
+        f"side, {trips:.0f} trips, {wall_s * 1e6 / trips:.2f} us of "
+        f"profiled wall time per trip): {calls / trips:.2f} aten ops "
+        f"(nested ones included), {total_us / trips:.2f} us self CPU time "
+        f"in all")
+    for key, count, self_us in rows[:top]:
+        log(f"[des]   {key[:48]:48s} {count / trips:7.2f} calls "
+            f"{self_us / trips:9.3f} us")
+    # device-side events only: a CPU op's entry carries its kernels' time
+    kernels = [(ev.key, ev.count, ev.device_time_total)
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda r: -r[2])
+    log(f"[des] device time of one fused batch per trip by kernel "
+        f"(torch.profiler): {sum(k[2] for k in kernels) / trips:.2f} us in "
+        f"{sum(k[1] for k in kernels) / trips:.2f} kernels and copies")
+    for key, count, dev_us in kernels[:10]:
+        name = re.split(r"[<(]", key.replace("(anonymous namespace)::", "")
+                        )[0].split("::")[-1].strip() or key
+        log(f"[des]   {name[:48]:48s} {count / trips:7.2f} calls "
+            f"{dev_us / trips:9.3f} us")
+
+
 def phase_des(dag) -> None:
+    """The DES at full width on the fused, per-round and plain paths."""
     import numpy as np
     import torch
     from repro_torch.core.baselines import BASELINES
     from repro_torch.core.des import DESProblem, simulate
-    from repro_torch.core.des_torch import TorchDES
+    from repro_torch.core.des_torch import DESOptions, TorchDES
     from repro_torch.core.ga import TopologySpace
 
     prob = DESProblem(dag)
-    t0 = time.perf_counter()
-    des = TorchDES(prob)
-    log(f"[des] TorchDES device {des.device} backend {des.backend} pad "
-        f"{tuple(des.pad)} built in {time.perf_counter() - t0:.2f} s")
-    if des.backend != "cuda":
-        fail(f"TorchDES took backend {des.backend!r}, not the kernel")
-    for name in ("prop-alloc", "sqrt-alloc"):
-        x = BASELINES[name](dag)
+    engines = {}
+    for name in ("cuda", "cuda-round", "ref"):
+        t0 = time.perf_counter()
+        des = TorchDES(prob, options=DESOptions(backend=name))
+        log(f"[des] TorchDES device {des.device} backend {des.backend} pad "
+            f"{tuple(des.pad)} built in {time.perf_counter() - t0:.2f} s")
+        if des.backend != name:
+            fail(f"TorchDES took backend {des.backend!r}, not {name!r}")
+        engines[name] = des
+    if TorchDES(prob).backend != "cuda":
+        fail("TorchDES on the card does not default to the fused kernel")
+    for base in ("prop-alloc", "sqrt-alloc"):
+        x = BASELINES[base](dag)
         t0 = time.perf_counter()
         want = simulate(prob, x)
         t_np = time.perf_counter() - t0
+        got = {}
+        for name, des in engines.items():
+            _reset_counts()         # this path's counts start at 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ms, feas, _, _ = des.simulate(x)
+            t_dev = time.perf_counter() - t0
+            c = _counts()
+            rel = abs(ms - want.makespan) / want.makespan
+            log(f"[des] {base} ({int(x.sum())} ports) on {name}: numpy "
+                f"{want.makespan!r} ({t_np:.3f} s), torch {ms!r} ({t_dev:.3f}"
+                f" s), rel {rel:.3e}; {c['trips']:.0f} trips, "
+                f"{c['rounds']:.0f} rounds, {c['maxmin']} fill_maxmin and "
+                f"{c['launches']} fill_round launches")
+            if feas != want.feasible or not rel <= DES_RTOL:
+                fail(f"{base} on {name}: torch DES {ms} vs numpy "
+                     f"{want.makespan} (rel {rel:.3e} > {DES_RTOL:g})")
+            _check_path(name, c)
+            got[name] = (ms, c["rounds"])
+        # the fused kernel and its plain version give the same bits, so
+        # the same makespan and rounds; the per-round kernel sums in
+        # another order
+        if got["cuda"] != got["ref"]:
+            fail(f"{base}: fused path {got['cuda']} vs its plain version "
+                 f"{got['ref']} (makespan, rounds) on the card")
+        rel = abs(got["cuda"][0] - got["cuda-round"][0]) / got["cuda"][0]
+        log(f"[des] {base}: fused == plain (makespan and rounds); fused vs "
+            f"per-round makespan rel {rel:.3e}, rounds {got['cuda'][1]:.0f} "
+            f"vs {got['cuda-round'][1]:.0f}")
+        if not rel <= KERNEL_RTOL:
+            fail(f"{base}: fused path {got['cuda']} vs per-round path "
+                 f"{got['cuda-round']} (makespan, rounds), rel {rel:.3e}")
+
+    # a 48-genome fitness batch in turns: round, fused, fused, round
+    space = TopologySpace(dag)
+    genomes = space.random_init_batch(np.random.default_rng(0), LANES)
+    results = {}
+    for turn, name in enumerate(("cuda-round", "cuda", "cuda", "cuda-round"),
+                                1):
+        des = engines[name]
+
+        def batch():
+            return des.batch_genome_makespan(genomes, space.edge_u,
+                                             space.edge_v)
         _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ms, feas, _, _ = des.simulate(x)
-        t_dev = time.perf_counter() - t0
+        ms_b, feas_b = batch()
+        wall = time.perf_counter() - t0
         c = _counts()
-        rel = abs(ms - want.makespan) / want.makespan
-        log(f"[des] {name} ({int(x.sum())} ports): numpy {want.makespan!r}"
-            f" ({t_np:.3f} s), torch {ms!r} ({t_dev:.3f} s), rel "
-            f"{rel:.3e}; {c['trips']:.0f} trips, {c['rounds']:.0f} rounds, "
-            f"{c['launches']} launches")
-        if feas != want.feasible or not rel <= DES_RTOL:
-            fail(f"{name}: torch DES {ms} vs numpy {want.makespan} "
-                 f"(rel {rel:.3e} > {DES_RTOL:g})")
-        if c["launches"] != c["rounds"] or c["launches"] == 0:
-            fail(f"{name}: {c['launches']} kernel launches for "
-                 f"{c['rounds']} filling rounds: a round missed the kernel")
+        _check_path(name, c)
+        t0 = time.perf_counter()
+        prof = _profile(batch)
+        prof_wall = time.perf_counter() - t0
+        busy = _busy_s(prof)
+        syncs = _host_syncs(batch)
+        trips = c["trips"]
+        log(f"[des] turn {turn} {name}: 48-genome batch {wall:.4f} s wall "
+            f"({wall * 1e3 / c['trips']:.4f} ms per trip); "
+            f"device busy {busy:.4f} s (profiled rerun), idle share "
+            + (f"{1.0 - busy / wall:.4f}" if busy else "not measured")
+            + f"; {syncs} host syncs in {trips:.0f} trips, "
+            f"{syncs / trips:.3f} per trip; {c['rounds']:.0f} rounds, "
+            f"{c['maxmin']} fill_maxmin, {c['launches']} fill_round launches")
+        if name == "cuda" and name not in results:
+            _trip_ops(prof, trips, prof_wall)
+        results.setdefault(name, []).append((ms_b, feas_b))
+    (ms_f, feas_f), (ms_r, feas_r) = results["cuda"][0], \
+        results["cuda-round"][0]
+    ok = feas_f & feas_r
+    worst = float((np.abs(ms_f[ok] - ms_r[ok]) / ms_r[ok]).max()) \
+        if ok.any() else 0.0
+    log(f"[des] fused vs per-round batch: max rel diff {worst:.3e} "
+        f"({int(ok.sum())} of {LANES} feasible on both)")
+    if not np.array_equal(feas_f, feas_r) or not worst <= KERNEL_RTOL:
+        fail(f"fused and per-round batches differ: rel {worst:.3e}")
+    for name, runs in results.items():
+        if not all(np.array_equal(m, runs[0][0]) for m, _ in runs):
+            fail(f"{name}: two batches of one seed gave other makespans")
 
-    space = TopologySpace(dag)
-    genomes = space.random_init_batch(np.random.default_rng(0), 48)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ms_b, feas_b = des.batch_genome_makespan(genomes, space.edge_u,
-                                             space.edge_v)
-    t_batch = time.perf_counter() - t0
-    busy_s = _device_busy_s(lambda: des.batch_genome_makespan(
-        genomes, space.edge_u, space.edge_v))
-    log(f"[des] 48-genome batch: {t_batch:.4f} s wall; device busy "
-        f"{busy_s:.4f} s (profiled rerun), idle share "
-        + (f"{1.0 - busy_s / t_batch:.4f}" if busy_s else "not measured"))
+    des = engines["cuda"]
     t0 = time.perf_counter()
     worst = 0.0
     for i, x in enumerate(space.to_matrix_batch(genomes)):
         ms, feas, _, _ = des.simulate(x)
-        if feas != bool(feas_b[i]):
-            fail(f"genome {i}: batched feasible {feas_b[i]}, single {feas}")
+        if feas != bool(feas_f[i]):
+            fail(f"genome {i}: batched feasible {feas_f[i]}, single {feas}")
         if feas:
-            worst = max(worst, abs(ms - ms_b[i]) / ms)
+            worst = max(worst, abs(ms - ms_f[i]) / ms)
     t_single = time.perf_counter() - t0
-    log(f"[des] 48 single calls {t_single:.2f} s; max rel diff from the "
-        f"batch {worst:.3e} ({int(feas_b.sum())} of 48 feasible)")
+    log(f"[des] {LANES} single calls {t_single:.2f} s; max rel diff from "
+        f"the batch {worst:.3e} ({int(feas_f.sum())} of {LANES} feasible in the batch)")
     if not worst <= 1e-6:
         fail(f"batched makespans differ from single ones by rel {worst}")
 
 
-def phase_plan(dag) -> int:
+def phase_plan(dag) -> tuple[int, int]:
+    """plan(delta-fast) at full width on the fused path, on the per-round
+    path, and on the fused path again; returns the fill_maxmin launches
+    of the first fused run and the fill_round launches of the per-round
+    run."""
     import numpy as np
     from repro_torch import obs
     from repro_torch.core.api import PlanRequest, plan
+    from repro_torch.core.des_torch import DESOptions
     from repro_torch.core.ga import GAOptions
 
-    def opts():
-        return GAOptions(seed=0, pop_size=48, max_generations=5,
-                         patience=60, time_limit=1e9)
-
-    results = []
-    for run in (1, 2):
+    results = {}
+    for run, name in enumerate(("cuda", "cuda-round", "cuda"), 1):
         obs.TRACER.clear()
-        _reset_counts()             # the main path's counts start at 0
+        _reset_counts()             # this path's counts start at 0
         t0 = time.perf_counter()
         with obs.enabled():
-            res = plan(PlanRequest(dag=dag, method="delta-fast",
-                                   ga_options=opts()))
+            res = plan(PlanRequest(
+                dag=dag, method="delta-fast",
+                ga_options=GAOptions(seed=0, pop_size=48, max_generations=5,
+                                     patience=60, time_limit=1e9),
+                # the fused runs take the default, which is the fused path
+                des_options=DESOptions(backend="auto" if name == "cuda"
+                                       else name)))
         wall = time.perf_counter() - t0
         c = _counts()
         spans = obs.TRACER.summary()
         gens = res.details["generations"]
         batches = spans["ga.fitness_batch"]["count"]
         gen_s = spans["ga.generation"]["total_s"] / max(gens, 1)
-        log(f"[plan] run {run}: makespan {float(res.makespan)!r} s, NCT "
-            f"{float(res.nct)!r}, {res.total_ports} ports, {gens} "
+        log(f"[plan] run {run} on {name}: makespan {float(res.makespan)!r} "
+            f"s, NCT {float(res.nct)!r}, {res.total_ports} ports, {gens} "
             f"generations, {res.details['evaluations']} evaluations, plan "
             f"{wall:.2f} s, {gen_s:.3f} s/generation")
-        log(f"[plan] run {run}: {batches} fitness batches, per batch "
-            f"{c['trips'] / batches:.1f} trips, {c['rounds'] / batches:.1f}"
-            f" rounds, {c['launches'] / batches:.1f} kernel launches; "
-            f"totals {c['trips']:.0f} / {c['rounds']:.0f} / "
+        log(f"[plan] run {run} on {name}: {batches} fitness batches, per "
+            f"batch {c['trips'] / batches:.1f} trips, "
+            f"{c['rounds'] / batches:.1f} rounds, "
+            f"{c['maxmin'] / batches:.1f} fill_maxmin and "
+            f"{c['launches'] / batches:.1f} fill_round launches; totals "
+            f"{c['trips']:.0f} / {c['rounds']:.0f} / {c['maxmin']} / "
             f"{c['launches']}")
+        log(f"[plan] run {run} on {name}: x has {res.total_ports} ports, "
+            f"makespan {float(res.makespan)!r} s (recorded on the per-round "
+            f"path: {ROUND_PATH_PORTS} ports, {ROUND_PATH_MAKESPAN!r} s)")
         if gens != 5 or not res.feasible or not np.isfinite(res.makespan) \
                 or not 0.0 < res.nct < np.inf:
-            fail(f"plan run {run}: generations {gens}, feasible "
+            fail(f"plan run {run} on {name}: generations {gens}, feasible "
                  f"{res.feasible}, makespan {res.makespan}, nct {res.nct}")
-        if c["launches"] == 0 or c["launches"] != c["rounds"]:
-            fail(f"plan run {run}: {c['launches']} kernel launches for "
-                 f"{c['rounds']} filling rounds")
-        results.append((res, c))
-    (a, ca), (b, _) = results
+        _check_path(name, c)
+        results.setdefault(name, []).append((res, c))
+    (a, ca), (b, _) = results["cuda"]
     if not np.array_equal(a.x, b.x) or a.makespan != b.makespan:
         fail("plan() gave different topologies on two runs with one seed")
-    log("[plan] two runs: identical x and makespan")
-    return ca["launches"]
+    r, cr = results["cuda-round"][0]
+    log(f"[plan] two fused runs: identical x and makespan; the per-round "
+        f"run's x is {'identical' if np.array_equal(a.x, r.x) else 'other'}"
+        f" (makespan {float(r.makespan)!r} s)")
+    return ca["maxmin"], cr["launches"]
 
 
 def phase_small_parity() -> None:
@@ -575,9 +858,9 @@ def phase_small_parity() -> None:
     rel = abs(card.makespan - cpu.makespan) / cpu.makespan
     log(f"[plan] gpt-7b ({dag.num_tasks} tasks): card {card.makespan!r}, "
         f"cpu {cpu.makespan!r}, rel {rel:.3e}, identical x {same}")
-    if not rel <= DES_RTOL:
+    if not rel <= DES_RTOL or not same:
         fail(f"gpt-7b plan on the card {card.makespan} vs the CPU "
-             f"{cpu.makespan}")
+             f"{cpu.makespan}, identical x {same}")
 
 
 def phase_xbound(dag, steps: int) -> tuple[int, float]:
@@ -693,14 +976,15 @@ def main() -> int:
     phase_build()
     dag = _megatron_462b()
     waterfill = kernel_waterfill()
+    maxmin = kernel_maxmin(dag)
     tclosure, closure_steps = kernel_tclosure(dag)
     maxplus, paths_steps = kernel_maxplus(dag)
     phase_des(dag)
-    waterfill["launches"] = phase_plan(dag)
+    maxmin["launches"], waterfill["launches"] = phase_plan(dag)
     phase_small_parity()
     tclosure["launches"], t_up = phase_xbound(dag, closure_steps)
     maxplus["launches"] = phase_paths(dag, t_up, paths_steps)
-    log(json.dumps({"kernels": [waterfill, tclosure, maxplus]}))
+    log(json.dumps({"kernels": [waterfill, maxmin, tclosure, maxplus]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

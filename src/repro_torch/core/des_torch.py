@@ -13,17 +13,22 @@ the loops from Python:
   * the event loop advances every lane to its next *distinct* event time
     per trip and retires every completion and start landing there, so
     the trip count is bounded by the distinct event times (<= 2n + 16);
-  * the inner max-min rounds run their fused (used, denom) reduction
-    through `repro_torch.kernels.ops.fill_round`: the hand-written Hopper
-    kernel on a CUDA device (backend 'cuda'), a dense torch matmul on the
-    CPU ('ref'), or an `index_add_` over the incidence entries
-    ('segment');
+  * the max-min fair rates of a trip (progressive filling) come from
+    `repro_torch.kernels.ops.fill_maxmin`: on a CUDA device (backend
+    'cuda') one launch of the hand-written Hopper kernel runs every
+    filling round of every lane, with the incidence as CSR in shared
+    memory; on the CPU ('ref') its plain version drives the rounds.
+    'cuda-round' drives the rounds from the host with one
+    `ops.fill_round` launch each (the per-round kernel over the dense
+    incidence), 'segment' with one `index_add_` over the incidence
+    entries;
   * a lane whose own loop condition is false is frozen: every state
     update is masked with the lane's running flag, as a batched
     `while_loop` selects only the lanes whose condition holds.  (A
     finished lane has t = -inf; stepping it would give NaN.)
 
-The host reads one flag per event trip and one per filling round; a loop
+On 'cuda' the host reads one flag per event trip and none per filling
+round; the host-driven backends read one flag per round as well.  A trip
 without host syncs (a CUDA graph or a persistent kernel) is later work.
 
 Problems are padded to quantized (tasks, deps, incidence, links) buckets
@@ -33,6 +38,7 @@ exact-shape simulation up to float summation order.
 from __future__ import annotations
 
 import math
+from collections.abc import Callable
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -43,13 +49,15 @@ from repro_torch.convert import (DESArrays, des_arrays_from_numpy,
                                  topology_from_numpy)
 from repro_torch.core.des import DESProblem
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import (csr_con_id, csr_warp_sums,
+                                     progressive_filling)
 from repro_torch.obs import get_counter, span
 
 __all__ = ["DESArrays", "DESOptions", "PadSpec", "TorchDES",
            "default_max_events", "MAXMIN_BACKENDS"]
 
 INF = math.inf
-MAXMIN_BACKENDS = ("auto", "cuda", "ref", "segment")
+MAXMIN_BACKENDS = ("auto", "cuda", "cuda-round", "ref", "segment")
 BUCKET_QUANTUM = 64        # tasks, deps and incidence entries round up to this
 BUCKET_QUANTUM_CONS = 8    # link and NIC constraint blocks round up to this
 
@@ -71,9 +79,14 @@ _ROUNDS = get_counter("des_fill_rounds_total",
 class DESOptions:
     """Engine knobs for `TorchDES`.
 
-      backend  'auto' -> 'cuda' (the Hopper kernel) on a CUDA device,
-               'ref' (dense torch matmul) on the CPU; 'segment' is the
-               index_add path over the incidence entries
+      backend  'auto' -> 'cuda' on a CUDA device, 'ref' on the CPU.
+               'cuda': every filling round of a trip in one launch of
+               the fused Hopper kernel (`ops.fill_maxmin`); 'cuda-round':
+               one launch of the per-round kernel (`ops.fill_round`) per
+               round, driven from the host; 'ref': the fused kernel's
+               plain version, bit-equal to it, driven from the host;
+               'segment': an index_add per round over the incidence
+               entries.  The two 'cuda' backends need a CUDA device
       device   None -> 'cuda'; without a CUDA device that raises rather
                than run on the CPU, which needs device='cpu'
       bucket   pad the problem to the BUCKET_QUANTUM buckets
@@ -99,9 +112,9 @@ class DESOptions:
                              f"pick from {MAXMIN_BACKENDS}")
         if self.backend == "auto":
             return "cuda" if device.type == "cuda" else "ref"
-        if self.backend == "cuda" and device.type != "cuda":
-            raise ValueError(f"DES backend 'cuda' needs a CUDA device, "
-                             f"got {device}")
+        if self.backend in ("cuda", "cuda-round") and device.type != "cuda":
+            raise ValueError(f"DES backend {self.backend!r} needs a CUDA "
+                             f"device, got {device}")
         return self.backend
 
 
@@ -197,55 +210,96 @@ def _dense_incidence(a: DESArrays) -> torch.Tensor:
     return w.index_put_((a.con_id, a.con_task), a.con_w, accumulate=True)
 
 
+def _incidence_csr(a: DESArrays
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The incidence as CSR by constraint for the fused kernel:
+    (con_ptr (C+1,) int32, ent_task (E,) int32, ent_w (E,) float32).
+
+    The entries are sorted stably by constraint, so each constraint keeps
+    its entries in their order; the ghost entries (task 0, constraint 0,
+    weight 0), which sit at the end of `con_id`, stay at the end of
+    constraint 0's row and add zero.  Raises on an entry outside (C, n)."""
+    c, dev = a.num_cons, a.con_id.device
+    counts = torch.bincount(a.con_id, minlength=c)
+    if counts.numel() != c or bool((a.con_id < 0).any()) \
+            or bool(((a.con_task < 0) | (a.con_task >= a.n)).any()):
+        raise ValueError(f"incidence entries outside {c} constraints x "
+                         f"{a.n} tasks")
+    order = torch.sort(a.con_id, stable=True).indices
+    con_ptr = torch.zeros(c + 1, dtype=torch.int32, device=dev)
+    con_ptr[1:] = counts.cumsum(0)
+    return (con_ptr, a.con_task[order].to(torch.int32).contiguous(),
+            a.con_w[order].contiguous())
+
+
 # --------------------------------------------------------- fair-share rates
+def _segment_sums(a: DESArrays
+                  ) -> Callable[[torch.Tensor, torch.Tensor],
+                                tuple[torch.Tensor, torch.Tensor]]:
+    """One filling round's per-constraint ``(used, denom)`` from (S, n)
+    ``level``/``unfrozen`` as one `index_add_` over the incidence
+    entries."""
+    def reduce(level, unfrozen):
+        vals = torch.stack([a.con_w * level[:, a.con_task],
+                            a.con_w * unfrozen[:, a.con_task]], -1)
+        out = torch.zeros((level.shape[0], a.num_cons, 2),
+                          dtype=torch.float32, device=level.device)
+        out.index_add_(1, a.con_id, vals)
+        return out[..., 0], out[..., 1]
+    return reduce
+
+
+def _rate_step(a: DESArrays, backend: str
+               ) -> Callable[[torch.Tensor, torch.Tensor],
+                             tuple[torch.Tensor, torch.Tensor]]:
+    """The max-min fair rate step of an event trip on `backend`, with the
+    incidence it reads built here once: ``(active (S, n), caps (S, C)) ->
+    (rates (S, n), rounds (S,))``, the rounds each lane ran.
+
+    'cuda' runs every filling round of every lane in one launch of the
+    fused kernel (`ops.fill_maxmin`) over the CSR incidence
+    (`_incidence_csr`); 'ref' is its plain version (`ref.fill_maxmin_ref`:
+    the host-driven loop `ref.progressive_filling` with the kernel's
+    summation order, `ref.csr_warp_sums`).  'cuda-round' and 'segment'
+    drive the same loop with a round's fused reduction pair ``used_c =
+    sum_m W[c,m] phi_m active_m`` / ``denom_c = sum_m W[c,m] unfrozen_m``
+    taken by one `ops.fill_round` launch over the dense incidence `W`
+    (`_dense_incidence`) or by one `index_add_` over the incidence
+    entries (`_segment_sums`)."""
+    if backend == "cuda":
+        csr = _incidence_csr(a)
+        return lambda active, caps: ops.fill_maxmin(
+            *csr, active, caps, a.flows, backend="cuda")
+    con_id, con_task = a.con_id, a.con_task
+    if backend == "ref":
+        csr = _incidence_csr(a)
+        reduce = csr_warp_sums(*csr)
+        con_id, con_task = csr_con_id(csr[0]), csr[1].long()
+    elif backend == "cuda-round":
+        W = _dense_incidence(a)
+
+        def reduce(level, unfrozen):
+            return ops.fill_round(W, level, unfrozen, backend="cuda")
+    elif backend == "segment":
+        reduce = _segment_sums(a)
+    else:
+        raise ValueError(f"unknown DES backend {backend!r}; pick from "
+                         f"{MAXMIN_BACKENDS[1:]}")
+    return lambda active, caps: progressive_filling(
+        reduce, con_id, con_task, active, caps, a.flows)
+
+
 def _maxmin(a: DESArrays, active: torch.Tensor, caps: torch.Tensor,
-            backend: str = "segment", W: torch.Tensor | None = None
+            backend: str = "segment", rounds: torch.Tensor | None = None
             ) -> torch.Tensor:
     """Weighted max-min fair task rates (progressive filling) for an
-    (S, n) batch of active sets under (S, C) capacities.
-
-    Each filling round needs, per constraint c, the fused reduction pair
-    ``used_c = sum_m W[c,m] phi_m active_m`` / ``denom_c = sum_m W[c,m]
-    unfrozen_m``: 'segment' takes it as one `index_add_` over the
-    incidence entries, 'cuda'/'ref' as `ops.fill_round` over the dense
-    incidence `W` (`_dense_incidence`).  A lane whose unfrozen set is
-    empty has stopped: every update is masked with `unfrozen`, so it
-    stays as it was while the other lanes go on."""
-    S, n, C = active.shape[0], a.n, a.num_cons
-    dev, f32 = a.volume.device, torch.float32
-    if backend != "segment" and W is None:
-        W = _dense_incidence(a)
-    active_f = active.to(f32)
-    phi = torch.zeros((S, n), dtype=f32, device=dev)
-    unfrozen = active.clone()
-    if backend == "segment":
-        # loop-invariant active-membership weights
-        act_w = torch.where(active[:, a.con_task], a.con_w, 0.0)
-    for _ in range(C + 1):
-        if not bool(unfrozen.any()):          # one host sync per round
-            break
-        _ROUNDS.inc()
-        if backend == "segment":
-            unf_w = torch.where(unfrozen[:, a.con_task], a.con_w, 0.0)
-            vals = torch.stack([act_w * phi[:, a.con_task], unf_w], -1)
-            out = torch.zeros((S, C, 2), dtype=f32, device=dev)
-            out.index_add_(1, a.con_id, vals)
-            used, denom = out[..., 0], out[..., 1]
-        else:
-            used, denom = ops.fill_round(W, phi * active_f, unfrozen.to(f32),
-                                         backend=backend)
-        # the reference divides by max(denom, 1e-300); in float32 that
-        # clamp is 0, and where() drops the denom == 0 constraints
-        alpha_c = torch.where(denom > 0, (caps - used) / denom, INF)
-        alpha = alpha_c.amin(1).clamp_min(0.0)
-        phi = torch.where(unfrozen, phi + alpha[:, None], phi)
-        # (1 + 1e-9) rounds to 1 in float32, as in the reference
-        sat = torch.isfinite(alpha_c) & (
-            alpha_c <= (alpha * (1 + 1e-9) + 1e-18)[:, None])
-        hits = torch.zeros((S, n), dtype=f32, device=dev)
-        hits.index_add_(1, a.con_task, sat[:, a.con_id].to(f32))
-        unfrozen = unfrozen & (hits == 0)
-    return a.flows * phi * active_f
+    (S, n) batch of active sets under (S, C) capacities, by `_rate_step`
+    on `backend`.  `rounds`, an int64 scalar on the device, gains the
+    batch's rounds (the most any lane ran) without a host sync."""
+    rates, lane_rounds = _rate_step(a, backend)(active, caps)
+    if rounds is not None and lane_rounds.numel():
+        rounds += lane_rounds.amax()
+    return rates
 
 
 # ------------------------------------------------------------------ engine
@@ -278,9 +332,9 @@ class TorchDES:
                            links=a.num_link_cons, cons=a.num_cons)
         self.max_events = int(max_events or default_max_events(a.n))
         self.P = problem.dag.cluster.num_pods
-        # dense incidence for the kernel backends, built once per engine
-        # and shared by every round of every trip of every lane
-        self.W = _dense_incidence(a) if self.backend != "segment" else None
+        # the rate step, with the incidence it reads built once per
+        # engine and shared by every round of every trip of every lane
+        self._rates = _rate_step(a, self.backend)
         # x-independent initial state: virtual task 0 and the padding
         # ghosts are born done at t=0; deps from task 0 are met
         self._started0 = ~a.task_valid
@@ -330,6 +384,7 @@ class TorchDES:
             t, started, finish, missing)
         start = torch.where(newly, ready, start)
         feasible = torch.ones(S, dtype=torch.bool, device=dev)
+        rounds = torch.zeros((), dtype=torch.int64, device=dev)
 
         for _ in range(self.max_events):
             run = torch.isfinite(t) & feasible
@@ -337,8 +392,8 @@ class TorchDES:
                 break
             _TRIPS.inc()
             active = started & ~done
-            rates = _maxmin(a, active & run[:, None], caps,
-                            self.backend, self.W)
+            rates, lane_rounds = self._rates(active & run[:, None], caps)
+            rounds += lane_rounds.amax()
             feas_new = feasible & torch.where(active, rates > 0, True).all(1)
             # rem / max(rates, 1e-300) in the reference: the clamp is 0 in
             # float32 and where() drops the rate-0 tasks
@@ -375,6 +430,8 @@ class TorchDES:
             finish = torch.where(r, finish_new, finish)
             missing = torch.where(r, missing_new, missing)
 
+        if _ROUNDS.enabled:
+            _ROUNDS.inc(int(rounds))          # one host read per simulation
         feasible = feasible & done.all(1)
         last = torch.where(torch.isfinite(finish), finish, -INF).amax(1)
         makespan = torch.where(feasible, last, INF)

@@ -100,3 +100,19 @@ def fill_round(w: torch.Tensor, level: torch.Tensor, unfrozen: torch.Tensor,
     if _pick(backend, level) == "cuda":
         return _waterfill.fill_round(w, level, unfrozen)
     return _ref.fill_round_ref(w, level, unfrozen)
+
+
+def fill_maxmin(con_ptr: torch.Tensor, ent_task: torch.Tensor,
+                ent_w: torch.Tensor, active: torch.Tensor, caps: torch.Tensor,
+                flows: torch.Tensor, *, backend: str = "auto"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted max-min fair rates by progressive filling, every round of
+    one DES event trip: the CSR incidence (con_ptr, ent_task, ent_w),
+    active (S, N), caps (S, C) and flows (N,) -> (rates (S, N), rounds
+    (S,) int32).  The `repro_torch.core.des_torch` rate step, once per
+    event trip."""
+    if _pick(backend, active) == "cuda":
+        return _waterfill.fill_maxmin(con_ptr, ent_task, ent_w, active, caps,
+                                      flows)
+    return _ref.fill_maxmin_ref(con_ptr, ent_task, ent_w, active, caps,
+                                flows)

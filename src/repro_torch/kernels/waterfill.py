@@ -1,12 +1,15 @@
-"""Hopper kernel for the fused water-filling matvec (CUDA C++, sm_90a).
+"""Hopper kernels for water-filling (CUDA C++, sm_90a).
 
 `fill_matvec(w, rhs)` computes ``w @ rhs`` for a constraint-task incidence
 matrix ``w`` (C, N) shared by every lane of a batch of right-hand sides
 (N, R) or (B, N, R).  `fill_round` is the DES layout of the same kernel:
 one progressive-filling round's per-constraint ``(used, denom)`` from the
-lanes' ``level`` and ``unfrozen`` vectors.  It replaces the Pallas kernel
-`repro/kernels/waterfill.py:47 fill_matvec`; the source, with what bounds
-it on the card, is `csrc/waterfill.cu`.
+lanes' ``level`` and ``unfrozen`` vectors.  `fill_maxmin` runs every
+progressive-filling round of one DES event trip, for every lane, in one
+launch, with the incidence as CSR in shared memory.  Both replace the
+Pallas kernel `repro/kernels/waterfill.py:47 fill_matvec` (`fill_maxmin`
+with the `while_loop` of `repro/core/des_jax.py:256 _maxmin` around it);
+the source, with what bounds each on the card, is `csrc/waterfill.cu`.
 
 The kernel is built with ``nvcc`` at first use from that source alone and
 loaded with ``ctypes`` (`repro_torch.kernels._build`).  This module
@@ -14,8 +17,8 @@ launches the kernel and nothing else: the plain version lives in
 `repro_torch.kernels.ref`, and the choice between the two is
 `repro_torch.kernels.ops`'s.
 
-`launches` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+`launches` counts `fill_matvec`'s launches and `maxmin_launches`
+`fill_maxmin`'s, so a run can show that its path went through the kernel.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+maxmin_launches = 0
+MAX_SMEM_BYTES = 232448    # 227 KB: the most shared memory a block may have
 
 
 def _kernel():
@@ -35,16 +40,30 @@ def _kernel():
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _maxmin_kernel():
+    return _build.function(
+        "waterfill", "waterfill_fill_maxmin",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def maxmin_smem_bytes(n: int, c: int, e: int) -> int:
+    """Shared memory one block of `fill_maxmin` needs: the CSR (con_ptr,
+    ent_task, ent_w), phi, alpha_c and caps at 4 bytes, and the active,
+    unfrozen and hit flags at 1 byte (`maxmin_smem_bytes` in the source)."""
+    return 4 * (c + 1) + 8 * e + 4 * n + 8 * c + 3 * n
+
+
+def _check(name: str, t: torch.Tensor, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> None:
     if not t.is_cuda:
         raise ValueError(f"waterfill kernel: {name} is on {t.device}, "
                          f"not a CUDA device")
     if t.device != device:
         raise ValueError(f"waterfill kernel: {name} is on {t.device}, "
-                         f"w on {device}")
-    if t.dtype != torch.float32:
+                         f"the first operand on {device}")
+    if t.dtype != dtype:
         raise ValueError(f"waterfill kernel: {name} is {t.dtype}, "
-                         f"needs torch.float32")
+                         f"needs {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"waterfill kernel: {name} must be contiguous")
 
@@ -87,3 +106,61 @@ def fill_round(w: torch.Tensor, level: torch.Tensor, unfrozen: torch.Tensor
     (B, N) -> per-constraint ``(used, denom)`` (C,) or (B, C)."""
     out = fill_matvec(w, torch.stack([level, unfrozen], dim=-1))
     return out[..., 0], out[..., 1]
+
+
+def fill_maxmin(con_ptr: torch.Tensor, ent_task: torch.Tensor,
+                ent_w: torch.Tensor, active: torch.Tensor, caps: torch.Tensor,
+                flows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted max-min fair rates of S lanes on the kernel: every
+    progressive-filling round in one launch.
+
+    con_ptr (C+1,) int32, ent_task (E,) int32 and ent_w (E,) float32 are
+    the incidence as CSR by constraint (con_ptr rising from 0 to E, every
+    ``ent_task`` in [0, N): the kernel checks both with a device assert,
+    which fails the launch at the next synchronisation); active (S, N)
+    bool, caps (S, C) float32, flows (N,) float32.  Returns
+    ``rates`` (S, N) float32, ``flows * phi * active``, and ``rounds``
+    (S,) int32, the rounds each lane ran.  Raises on anything the kernel
+    does not take, a problem too large for one block's shared memory
+    included; launches on the current stream and does not synchronise."""
+    global maxmin_launches
+    dev = active.device
+    for name, t, dtype in (("con_ptr", con_ptr, torch.int32),
+                           ("ent_task", ent_task, torch.int32),
+                           ("ent_w", ent_w, torch.float32),
+                           ("active", active, torch.bool),
+                           ("caps", caps, torch.float32),
+                           ("flows", flows, torch.float32)):
+        _check(name, t, dev, dtype)
+    if active.dim() != 2 or caps.dim() != 2:
+        raise ValueError(f"waterfill kernel: needs active (S, N) and caps "
+                         f"(S, C), got {tuple(active.shape)} and "
+                         f"{tuple(caps.shape)}")
+    (s, n), (s2, c), e = active.shape, caps.shape, ent_task.numel()
+    if s2 != s or c < 1 or con_ptr.shape != (c + 1,) \
+            or ent_task.shape != (e,) or ent_w.shape != (e,) \
+            or flows.shape != (n,):
+        raise ValueError(
+            f"waterfill kernel: shapes disagree: active {tuple(active.shape)}"
+            f", caps {tuple(caps.shape)}, con_ptr {tuple(con_ptr.shape)}, "
+            f"ent_task {tuple(ent_task.shape)}, ent_w {tuple(ent_w.shape)}, "
+            f"flows {tuple(flows.shape)}")
+    smem = maxmin_smem_bytes(n, c, e)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"waterfill kernel: N={n}, C={c}, E={e} need "
+                         f"{smem} bytes of shared memory per block, more "
+                         f"than the {MAX_SMEM_BYTES} a block may have")
+    rates = torch.empty((s, n), dtype=torch.float32, device=dev)
+    rounds = torch.empty(s, dtype=torch.int32, device=dev)
+    if s:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = _maxmin_kernel()(
+                con_ptr.data_ptr(), ent_task.data_ptr(), ent_w.data_ptr(),
+                active.data_ptr(), caps.data_ptr(), flows.data_ptr(),
+                rates.data_ptr(), rounds.data_ptr(), s, n, c, e, stream)
+        if err != 0:
+            raise RuntimeError(f"waterfill fill_maxmin launch failed: "
+                               f"cudaError {err}")
+        maxmin_launches += 1
+    return rates, rounds
