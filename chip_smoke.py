@@ -70,6 +70,11 @@ TC_SIZES = [1, 5, 64, 127, 128, 130, 257]
 TC_DENSITIES = [0.02, 0.2]
 MP_SHAPES = [(3, 4, 5), (64, 64, 64), (130, 17, 70), (1, 1, 1),
              (128, 128, 128)]
+# the edges of the max-plus kernel's stream-K schedule: one row and column
+# with a long k, ragged tiles, and a short k (fewer chunks than one block's
+# range), each at megatron-462b's width
+MP_EDGES = [(1, 801, 1), (33, 1000, 65), (801, 1, 801), (801, 3, 801),
+            (801, 17, 801)]
 KERNELS = ("waterfill", "tclosure", "maxplus")
 # fill_maxmin sweep of tests/test_torch_cuda.py: (lanes S, tasks N,
 # constraints C, entries E, density of the active sets); the last needs
@@ -151,6 +156,22 @@ def phase_build():
                   lib.with_suffix(".log").read_text().splitlines()
                   if "Used" in line or "spill" in line]
         log(f"[build] {lib.relative_to(ROOT)}: {'; '.join(report)}")
+
+
+def _ptxas(name: str) -> str:
+    """The compiler's report (registers, spills, shared memory) for each
+    kernel of `csrc/<name>.cu`, from its build log."""
+    from repro_torch.kernels import _build
+    lines, kernel = [], None
+    for line in _build.library_path(name).with_suffix(".log").read_text() \
+            .splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+((?:pack|square|"
+                      r"maxplus|combine)_[a-z]+)(?:I(\w)E)?", line)
+        if m:       # the kernel's name, and a template's type code
+            kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        elif "Used" in line and kernel:
+            lines.append(f"{kernel[:40]}: {line.split(':', 1)[1].strip()}")
+    return "; ".join(lines)
 
 
 def _check_close(name: str, got, want) -> tuple[float, float]:
@@ -393,6 +414,22 @@ def kernel_tclosure(dag) -> tuple[dict, int]:
     torch.cuda.synchronize()
     log(f"[kernels] tclosure_step sweep {cases} cases (n x density x "
         f"dtype): bit-equal to the plain version")
+    # the two paths of the square, on either side of the resident limit
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    limit = max(m for m in range(1, 4096) if tclosure.plan(m, sms).resident)
+    for m in (limit, limit + 1):
+        path = "resident" if tclosure.plan(m, sms).resident else "streamed"
+        if path != ("resident" if m == limit else "streamed"):
+            fail(f"tclosure_step n={m}: plan takes the {path} path")
+        a = torch.from_numpy(rng.random((m, m)) < 0.02).to(dev)
+        got = ops.tclosure_step(a, backend="cuda")
+        _bits_equal(f"tclosure_step n={m} ({path})", got,
+                    tclosure_step_ref(a))
+        if not torch.equal(got, ops.tclosure_step(a, backend="cuda")):
+            fail(f"tclosure_step n={m} is not bit-identical run to run")
+        log(f"[kernels] tclosure_step n={m} ({path} path, "
+            f"{tclosure.plan(m, sms).smem} bytes of shared memory per "
+            f"block): bit-equal to the plain version; bit-identical rerun")
 
     # full width: every squaring step of megatron-462b's closure
     adj = dep_adjacency(dag, dev)
@@ -415,24 +452,43 @@ def kernel_tclosure(dag) -> tuple[dict, int]:
         f"bit-equal to the plain version; bit-identical rerun")
 
     f = adj.to(torch.float32)
+    # the counting product an int8 route would run: torch._int_mm needs
+    # sizes that are multiples of 8, so the matrix is padded with zeros
+    pad = -(-n // 8) * 8
+    i8 = torch.zeros((pad, pad), dtype=torch.int8, device=dev)
+    i8[:n, :n] = adj
     ms = time_ms(lambda: tclosure.tclosure_step(adj))
     plain_ms = time_ms(lambda: tclosure_step_ref(adj))
     library_ms = time_ms(lambda: torch.matmul(f, f))
+    int_mm_ms = time_ms(lambda: torch._int_mm(i8, i8))
     # bool in and out; the product counted as the dense int8 product an
     # exact tensor-core version would run (2 n^3 at the int8 peak)
     b_ms, b_by = bound_ms(2.0 * n * n, 2.0 * n ** 3, INT8_PEAK)
-    log(f"[kernels] tclosure_step n={n}: kernel {ms:.5f} ms/call, plain "
-        f"{plain_ms:.5f}, torch.matmul (f32) {library_ms:.5f}, bound "
-        f"{b_ms:.6f} ms ({b_by})")
+    p = tclosure.plan(n, sms)
+    path = "resident" if p.resident else "streamed"
+    log(f"[kernels] tclosure_step n={n} ({path} path, {p.blocks} blocks of "
+        f"{p.warps} warps, {p.smem} bytes of shared memory per block): "
+        f"kernel {ms:.5f} ms/call, plain {plain_ms:.5f}, torch.matmul "
+        f"(f32) {library_ms:.5f}, torch._int_mm (int8, padded to {pad}) "
+        f"{int_mm_ms:.5f}, bound {b_ms:.6f} ms ({b_by})")
     dev_us = {name: _device_us_per_call(fn) for name, fn in (
         ("kernel", lambda: tclosure.tclosure_step(adj)),
         ("plain", lambda: tclosure_step_ref(adj)),
-        ("torch.matmul", lambda: torch.matmul(f, f)))}
+        ("torch.matmul", lambda: torch.matmul(f, f)),
+        (f"torch._int_mm padded to {pad}", lambda: torch._int_mm(i8, i8)))}
     log("[kernels] device time per call (profiler): " + ", ".join(
         f"{k} {v}" for k, v in dev_us.items()))
-    by_kernel = _device_us_by_kernel(lambda: tclosure.tclosure_step(adj))
-    log("[kernels] tclosure_step device time by kernel (profiler): "
-        + ", ".join(f"{k} {v:.3f} us" for k, v in by_kernel.items()))
+    a = adj
+    for step in range(1, steps + 1):
+        by_kernel = _device_us_by_kernel(lambda: tclosure.tclosure_step(a))
+        total = sum(by_kernel.values())
+        log(f"[kernels] tclosure_step n={n} step {step} ({int(a.sum())} set "
+            f"bits) device time by kernel (profiler): " + ", ".join(
+                f"{k} {v:.3f} us" for k, v in by_kernel.items())
+            + f"; {total:.3f} us in all, {b_ms * 1e3 / total:.4f} of the "
+            f"bound")
+        a = tclosure_step_ref(a)
+    log(f"[kernels] tclosure ptxas: {_ptxas('tclosure')}")
     return {"name": "tclosure.tclosure_step", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/tclosure.cu",
             "replaces": "src/repro/kernels/tclosure.py:41",
@@ -460,9 +516,16 @@ def kernel_maxplus(dag) -> tuple[dict, int]:
         a, b = sparse(m, k), sparse(k, n)
         _bits_equal(f"maxplus {m}x{k}x{n}", ops.maxplus(a, b, backend="cuda"),
                     maxplus_ref(a, b))
+    for m, k, n in MP_EDGES:
+        a, b = sparse(m, k), sparse(k, n)
+        got = ops.maxplus(a, b, backend="cuda")
+        _bits_equal(f"maxplus {m}x{k}x{n}", got, maxplus_ref(a, b))
+        if not torch.equal(got, ops.maxplus(a, b, backend="cuda")):
+            fail(f"maxplus {m}x{k}x{n} is not bit-identical run to run")
     torch.cuda.synchronize()
-    log(f"[kernels] maxplus sweep {len(MP_SHAPES)} shapes: bit-equal to "
-        f"the plain version")
+    log(f"[kernels] maxplus sweep {len(MP_SHAPES)} shapes and "
+        f"{len(MP_EDGES)} edges of the schedule {MP_EDGES}: bit-equal to "
+        f"the plain version, bit-identical reruns")
 
     # full width: every squaring step of longest_paths on megatron-462b
     d0 = _paths_start(dag, dev)
@@ -487,13 +550,23 @@ def kernel_maxplus(dag) -> tuple[dict, int]:
     ms = time_ms(lambda: maxplus.maxplus(d0, d0))
     plain_ms = time_ms(lambda: maxplus_ref(d0, d0), iters=20, warmup=3)
     b_ms, b_by = bound_ms(4.0 * 3 * n * n, 2.0 * n ** 3, F32_INSTR)
-    log(f"[kernels] maxplus {n}x{n}x{n}: kernel {ms:.5f} ms/call, plain "
+    p = maxplus.plan(n, n, n, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    log(f"[kernels] maxplus {n}x{n}x{n} ({p.tiles_m * p.tiles_n} tiles x "
+        f"{p.kc} k-chunks = {p.units} units on {p.blocks} blocks, workspace "
+        f"{p.blocks * p.max_seg} tiles): kernel {ms:.5f} ms/call, plain "
         f"{plain_ms:.5f}, no library call, bound {b_ms:.6f} ms ({b_by})")
     dev_us = {name: _device_us_per_call(fn, iters) for name, fn, iters in (
         ("kernel", lambda: maxplus.maxplus(d0, d0), 50),
         ("plain", lambda: maxplus_ref(d0, d0), 5))}
     log("[kernels] device time per call (profiler): " + ", ".join(
         f"{k} {v}" for k, v in dev_us.items()))
+    by_kernel = _device_us_by_kernel(lambda: maxplus.maxplus(d0, d0))
+    total = sum(by_kernel.values())
+    log("[kernels] maxplus device time by kernel (profiler): " + ", ".join(
+        f"{k} {v:.3f} us" for k, v in by_kernel.items())
+        + f"; {total:.3f} us in all, {b_ms * 1e3 / total:.4f} of the bound")
+    log(f"[kernels] maxplus ptxas: {_ptxas('maxplus')}")
     return {"name": "maxplus.maxplus", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/maxplus.cu",
             "replaces": "src/repro/kernels/maxplus.py:40",

@@ -13,6 +13,7 @@ import every module of the port.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -86,3 +87,11 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _fns[name, symbol] = fn
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SMs of CUDA device `device_index`, which the kernels' persistent
+    grids are sized by (asked of the driver once)."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

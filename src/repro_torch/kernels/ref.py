@@ -13,6 +13,9 @@ from collections.abc import Callable
 
 import torch
 
+from repro_torch.kernels import maxplus as _maxplus
+from repro_torch.kernels import tclosure as _tclosure
+
 NEG_INF = -1e30  # finite stand-in for -inf in max-plus
 INF = math.inf
 
@@ -40,6 +43,29 @@ def transitive_closure_ref(a: torch.Tensor, max_steps: int | None = None
     return a
 
 
+def tclosure_packed_ref(a: torch.Tensor) -> torch.Tensor:
+    """`tclosure_step_ref` the way the kernel computes it: each row packed
+    into `ws` words (`tclosure.word_stride`: ceil(n / 32) rounded up to a
+    multiple of 4, padding bits zero), then for every set bit k of row i
+    the packed row k ORed into row i, then A's own words ORed in and the
+    words unpacked to the first n columns only.  Plain torch at the
+    kernel's word stride, for the CPU tests; nothing on the card's path
+    calls it."""
+    a = a != 0
+    n = a.shape[0]
+    ws = _tclosure.word_stride(n)
+    cols = torch.zeros((n, 32 * ws), dtype=torch.int64, device=a.device)
+    cols[:, :n] = a.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=a.device)
+    words = (cols.view(n, ws, 32) << shifts).sum(-1)        # (n, ws)
+    acc = words.clone()
+    for k in range(n):                 # walk the set bits, word by word
+        hit = (words[:, k // 32] >> (k % 32)) & 1
+        acc |= torch.where(hit[:, None] == 1, words[k], 0)
+    bits = (acc[:, :, None] >> shifts) & 1                  # (n, ws, 32)
+    return bits.reshape(n, 32 * ws)[:, :n] == 1
+
+
 def maxplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Tropical (max, +) matrix product: out[i,j] = max_k a[i,k] + b[k,j].
 
@@ -48,6 +74,49 @@ def maxplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a = a.to(torch.float32)
     b = b.to(torch.float32)
     return (a[:, :, None] + b[None]).amax(1).clamp_min(NEG_INF)
+
+
+def maxplus_split_ref(a: torch.Tensor, b: torch.Tensor,
+                      plan: _maxplus.Plan) -> torch.Tensor:
+    """`maxplus_ref` the way the kernel computes it under `plan`
+    (`maxplus.plan`): a and b padded with NEG_INF to whole tiles and
+    k-chunks, block g's range of work units cut into one partial maximum
+    per tile it touches (each from NEG_INF), and each entry the maximum of
+    the partials that its tile's blocks wrote.  Plain torch, for the CPU
+    tests; nothing on the card's path calls it."""
+    bm, bn, bk = _maxplus.BM, _maxplus.BN, _maxplus.BK
+    (m, k), n = a.shape, b.shape[1]
+    kc, tiles_n = plan.kc, plan.tiles_n
+    ap = torch.full((plan.tiles_m * bm, kc * bk), NEG_INF,
+                    dtype=torch.float32)
+    ap[:m, :k] = a
+    bp = torch.full((kc * bk, tiles_n * bn), NEG_INF, dtype=torch.float32)
+    bp[:k, :n] = b
+    # unwritten slots stay NaN, which torch.maximum would carry to the end
+    ws = torch.full((plan.blocks, plan.max_seg, bm, bn), math.nan)
+    for g in range(plan.blocks):
+        u = u0 = _maxplus.unit_start(g, plan.units, plan.blocks)
+        u1 = _maxplus.unit_start(g + 1, plan.units, plan.blocks)
+        while u < u1:
+            t = u // kc
+            end = min(u1, (t + 1) * kc)
+            tm, tn = divmod(t, tiles_n)
+            at = ap[tm * bm:(tm + 1) * bm, (u % kc) * bk:(end - t * kc) * bk]
+            bt = bp[(u % kc) * bk:(end - t * kc) * bk, tn * bn:(tn + 1) * bn]
+            ws[g, t - u0 // kc] = (at[:, :, None] + bt[None]).amax(1) \
+                .clamp_min(NEG_INF)
+            u = end
+    out = torch.full((plan.tiles_m * bm, tiles_n * bn), NEG_INF)
+    for t in range(plan.tiles_m * tiles_n):
+        tm, tn = divmod(t, tiles_n)
+        first = t * kc      # the blocks owning units first .. first + kc - 1
+        g0 = ((first + 1) * plan.blocks - 1) // plan.units
+        g1 = ((first + kc) * plan.blocks - 1) // plan.units
+        tile = out[tm * bm:(tm + 1) * bm, tn * bn:(tn + 1) * bn]
+        for g in range(g0, g1 + 1):
+            seg = t - _maxplus.unit_start(g, plan.units, plan.blocks) // kc
+            tile.copy_(torch.maximum(tile, ws[g, seg]))
+    return out[:m, :n].to(a.device)
 
 
 def fill_matvec_ref(w: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from conftest import gpt7b_job
+from repro_torch.configs import PAPER_WORKLOADS, make_job
 from repro_torch.core.dag import VIRTUAL
 from repro_torch.core.des import DESProblem, simulate
 from repro_torch.core.des_torch import DESOptions, TorchDES
@@ -34,7 +35,7 @@ from repro_torch.core.pruning import (cal_task_time_windows, dep_weights,
                                       estimate_t_up)
 from repro_torch.core.schedule import build_comm_dag
 from repro_torch.core.traffic import JobSpec
-from repro_torch.core.xbound import (reachability_bitset,
+from repro_torch.core.xbound import (dep_adjacency, reachability_bitset,
                                      reachability_kernel, x_upper_bound)
 from repro_torch.kernels import _build, maxplus, ops, tclosure, waterfill
 from repro_torch.kernels.ref import (NEG_INF, fill_matvec_ref,
@@ -53,6 +54,10 @@ TC_SIZES = [1, 5, 64, 127, 128, 130, 257, 801]
 TC_DTYPES = [torch.bool, torch.int8, torch.int32, torch.float32]
 MP_SHAPES = [(3, 4, 5), (64, 64, 64), (130, 17, 70), (1, 1, 1),
              (128, 128, 128), (801, 801, 801)]
+# the edges of the max-plus kernel's stream-K schedule: one entry with a
+# long k, ragged tiles, and a k shorter than one block's range of units
+MP_EDGES = [(1, 801, 1), (33, 1000, 65), (801, 1, 801), (801, 3, 801),
+            (801, 17, 801)]
 # fill_maxmin sweep: (lanes S, tasks N, constraints C, entries E, density of
 # the active sets); the next to last needs 93 KB of shared memory (above
 # the 48 KB default), the last is the main path's (megatron-462b bucketed)
@@ -180,6 +185,67 @@ def test_maxplus_matches_plain(cuda, shape):
     assert maxplus.launches == before + 1
     assert torch.equal(got, maxplus_ref(a, b))
     assert torch.equal(got, ops.maxplus(a, b))        # bit-identical rerun
+
+
+@pytest.mark.parametrize("shape", MP_EDGES)
+def test_maxplus_schedule_edges_match_plain(cuda, shape):
+    m, k, n = shape
+    rng = np.random.default_rng(m * 3 + k + n)
+
+    def sparse(r, c):
+        return torch.from_numpy(np.where(
+            rng.random((r, c)) < 0.4, rng.random((r, c)) * 10, NEG_INF)
+            .astype(np.float32)).to(cuda)
+    a, b = sparse(m, k), sparse(k, n)
+    p = maxplus.plan(m, k, n, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert p.blocks <= p.units
+    before = maxplus.launches
+    got = ops.maxplus(a, b)
+    torch.cuda.synchronize()
+    assert maxplus.launches == before + 1       # the product and its combine
+    assert torch.equal(got, maxplus_ref(a, b))
+    assert torch.equal(got, ops.maxplus(a, b))        # bit-identical rerun
+
+
+def _resident_limit(device) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(n for n in range(1, 4096) if tclosure.plan(n, sms).resident)
+
+
+@pytest.mark.parametrize("side", ["resident", "streamed"])
+@pytest.mark.parametrize("density", [0.002, 0.05])
+def test_tclosure_both_paths_match_plain(cuda, side, density):
+    """n just below and just above the resident limit: each takes its path
+    (the plan says which) and is bit-equal to the plain version."""
+    n = _resident_limit(cuda) + (side == "streamed")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tclosure.plan(n, sms).resident == (side == "resident")
+    rng = np.random.default_rng(n + int(density * 1000))
+    a = torch.from_numpy(rng.random((n, n)) < density).to(cuda)
+    got = ops.tclosure_step(a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tclosure_step_ref(a))
+    assert torch.equal(got, ops.tclosure_step(a))     # bit-identical rerun
+
+
+def test_tclosure_every_step_at_full_width(cuda):
+    """megatron-462b's closure (n = 801): all 3 squaring steps, each
+    bit-equal to the plain version, one launch each."""
+    job = make_job(PAPER_WORKLOADS["megatron-462b"], seq_len=4096)
+    a = dep_adjacency(build_comm_dag(job, 400.0), cuda)
+    assert a.shape == (801, 801)
+    steps = 0
+    while True:
+        before = tclosure.launches
+        got = ops.tclosure_step(a)
+        assert tclosure.launches == before + 1
+        assert torch.equal(got, tclosure_step_ref(a))
+        steps += 1
+        if torch.equal(got, a):
+            break
+        a = got
+    assert steps == 3
 
 
 def test_new_kernels_reject_what_they_do_not_take(cuda):

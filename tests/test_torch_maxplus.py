@@ -9,10 +9,17 @@ Tolerances: the product is a max of float32 sums, each rounded once, and a
 max does not depend on order, so the port equals both references bit for
 bit; rtol 1e-6 / atol 1e-4 (tests/test_kernels.py) is the stated ceiling.
 Longest paths against the float64 Bellman loop and Alg. 4: rtol 1e-5, as
-in tests/test_kernels.py."""
+in tests/test_kernels.py.  The kernel's stream-K schedule (`maxplus.plan`)
+is held here too, through its plain replay `maxplus_split_ref`: bit equal
+to both references (a max does not depend on how k is split)."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 from repro.kernels import ops as jax_ops
@@ -23,7 +30,7 @@ from repro_torch.core.pruning import (cal_task_time_windows, dep_weights,
                                       estimate_t_up)
 from repro_torch.core.schedule import build_comm_dag
 from repro_torch.kernels import maxplus, ops
-from repro_torch.kernels.ref import NEG_INF, maxplus_ref
+from repro_torch.kernels.ref import NEG_INF, maxplus_ref, maxplus_split_ref
 from test_torch_des import port_job
 
 RTOL, ATOL = 1e-6, 1e-4
@@ -119,3 +126,93 @@ def test_cuda_backend_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="unknown kernel backend"):
         ops.maxplus(a, a, backend="pallas")
     assert maxplus.launches == before
+
+
+# The kernel's schedule (`maxplus.plan`) and its plain replay
+# (`ref.maxplus_split_ref`): every (tile, k-chunk) unit once, NEG_INF in
+# the padding, the partials combined by a max.  Bit equality throughout.
+SPLIT_SHAPES = SHAPES + [(1, 801, 1), (33, 1000, 65), (200, 1, 150),
+                         (200, 3, 150), (257, 17, 129), (130, 0, 7)]
+
+
+def _split_case(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    return _sparse(rng, m, k), _sparse(rng, k, n)
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("sms", [1, 3, 132])
+def test_split_replay_matches_plain_and_jax(shape, sms):
+    m, k, n = shape
+    a, b = _split_case(m, k, n, m * 7 + k * 3 + n + sms)
+    p = maxplus.plan(m, k, n, sms)
+    got = maxplus_split_ref(torch.from_numpy(a), torch.from_numpy(b), p)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    if k == 0:      # no candidate: every entry is "no path"
+        assert torch.equal(got, torch.full((m, n), NEG_INF))
+        return
+    np.testing.assert_array_equal(
+        got.numpy(), maxplus_ref(torch.from_numpy(a),
+                                 torch.from_numpy(b)).numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jax_maxplus_ref(jnp.asarray(a), jnp.asarray(b))))
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.integers(1, 150), st.integers(1, 90), st.integers(1, 150),
+       st.integers(1, 300), st.integers(0, 2**31 - 1))
+def test_property_split_replay_is_plain(m, k, n, sms, seed):
+    a, b = _split_case(m, k, n, seed)
+    got = maxplus_split_ref(torch.from_numpy(a), torch.from_numpy(b),
+                            maxplus.plan(m, k, n, sms))
+    assert torch.equal(got, maxplus_ref(torch.from_numpy(a),
+                                        torch.from_numpy(b)))
+
+
+def _owners(p, t):
+    """The blocks whose range holds a unit of tile t, by the combine
+    kernel's formula (block g owns unit u when g = ((u+1) G - 1) // U)."""
+    first = t * p.kc
+    g0 = ((first + 1) * p.blocks - 1) // p.units
+    g1 = ((first + p.kc) * p.blocks - 1) // p.units
+    return set(range(g0, g1 + 1))
+
+
+@pytest.mark.parametrize("shape", [(801, 801, 801), (1, 1, 1), (3, 4, 5),
+                                   (1, 801, 1), (33, 1000, 65),
+                                   (801, 17, 801), (5000, 64, 300)])
+@pytest.mark.parametrize("sms", [1, 7, 132, 1000])
+def test_plan_covers_every_unit_once(shape, sms):
+    m, k, n = shape
+    p = maxplus.plan(m, k, n, sms)
+    assert p.units == p.tiles_m * p.tiles_n * p.kc
+    assert 1 <= p.blocks <= min(p.units, sms)
+    starts = [maxplus.unit_start(g, p.units, p.blocks)
+              for g in range(p.blocks + 1)]
+    assert starts[0] == 0 and starts[-1] == p.units
+    assert all(s1 > s0 for s0, s1 in zip(starts, starts[1:]))  # none empty
+    owners = {t: set() for t in range(p.tiles_m * p.tiles_n)}
+    for g in range(p.blocks):
+        tiles = range(starts[g] // p.kc, (starts[g + 1] - 1) // p.kc + 1)
+        assert len(tiles) <= p.max_seg          # its partials fit `ws`
+        for t in tiles:
+            owners[t].add(g)
+    for t, gs in owners.items():
+        assert gs == _owners(p, t)
+
+
+def test_plan_at_full_width():
+    p = maxplus.plan(801, 801, 801, 132)
+    assert p == maxplus.Plan(tiles_m=7, tiles_n=7, kc=51, units=2499,
+                             blocks=132, max_seg=2)
+    with pytest.raises(ValueError, match="work units"):
+        maxplus.plan(2 ** 20, 2 ** 20, 2 ** 20, 132)
+
+
+def test_tiling_matches_the_source():
+    src = (Path(maxplus.__file__).parent / "csrc" / "maxplus.cu").read_text()
+    const = {name: int(v) for name, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (maxplus.BM, maxplus.BN, maxplus.BK) == (
+        const["kBM"], 16 * const["kTN"], const["kBK"])
+    assert "__launch_bounds__(kThreads, 1)" in src   # one block per SM
