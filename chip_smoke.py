@@ -39,7 +39,32 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
   7. paths    all-pairs longest paths by max-plus squaring (the maxplus
               kernel) on megatron-462b's dependency weights: row VIRTUAL
               is Alg. 4's EST; and the Bellman check of
-              tests/test_kernels.py.
+              tests/test_kernels.py;
+  8. robust   plan(delta-robust, max-regret) of an ensemble of
+              megatron-462b at sequence lengths 4096 and 16384 (96 lanes
+              per fitness batch: 48 genomes x 2 members, one fill_maxmin
+              launch per trip), the refs by the facade's own delta-fast;
+              the winner's member makespans on the card against the numpy
+              DES; then delta_robust on megatron-462b at 128 and 64
+              microbatches, members that differ in structure (801 and 417
+              tasks, padded to one shape), its winner likewise;
+  9. failsafe plan() of megatron-462b under four fabric scenarios (the
+              healthy fabric and 1 of 4 planes dark on each of the three
+              pod pairs of most volume: 192 lanes), its scenario makespans
+              on the card against the numpy DES; gpt-7b under the default
+              scenarios on the card and on the CPU (the same topology);
+ 10. milp     plan(delta-joint-hotstart) on gpt-7b at the reference
+              benchmark's 4 microbatches: the hot-start GA on the card,
+              the MILP on the host (HiGHS), a validate-clean schedule no
+              worse than the same run's delta-fast;
+ 11. resilient plan() of gpt-7b with a zero MILP budget: the fallback
+              chain lands on its GA stage, which runs on the card.
+
+The kernels phase also holds fill_maxmin's member axis against its plain
+version: a sweep of 1-3 members, and the two members of each [robust]
+ensemble at 96 lanes (the sequence-length pair shares one CSR; the
+microbatch pair's CSRs differ, and each member's lanes must equal a
+launch of that member alone).
 
 Any failed check or error exits non-zero.  Without a CUDA device, or
 without the port beside it, it exits non-zero before printing a result.
@@ -83,6 +108,13 @@ MAXMIN_SWEEP = [(1, 1, 1, 1, 1.0), (3, 5, 3, 7, 0.5), (8, 64, 8, 100, 0.3),
                 (5, 257, 40, 600, 0.8), (2, 1000, 200, 3000, 0.05),
                 (4, 4000, 100, 8000, 0.1)]
 LANES = 48              # the GA population of the main path
+ROBUST_SEQ_LENS = (4096, 16384)   # the [robust] ensemble's two members
+# the second [robust] ensemble: megatron-462b at seq_len 4096 with Table
+# I's 128 microbatches and with 64, members that differ in structure (the
+# reference's robust benchmark mixes megatron microbatch counts likewise)
+ROBUST_MICROBATCHES = (128, 64)
+MEMBER_SWEEP = (257, 40, 600, 0.8)   # (N, C, E, density) of each member
+ROBUST_GENERATIONS = 3
 # plan() on megatron-462b (48 genomes, 5 generations, seed 0) on the
 # per-round kernel path, as PERF.md records it
 ROUND_PATH_PORTS, ROUND_PATH_MAKESPAN = 122, 93.60538748389672
@@ -263,7 +295,8 @@ def kernel_waterfill() -> dict:
 
 def _maxmin_instance(rng, s, n, c, e, density, dev):
     """A random CSR incidence in which every task sits in a constraint
-    (when E >= N), with S lanes of active sets and capacities."""
+    (when E >= N), with a member axis of 1, and S lanes of active sets
+    and capacities."""
     import numpy as np
     import torch
     con = np.concatenate([np.arange(min(n, e)) % c,
@@ -273,11 +306,11 @@ def _maxmin_instance(rng, s, n, c, e, density, dev):
     order = np.argsort(con, kind="stable")
     con_ptr = np.zeros(c + 1, dtype=np.int32)
     con_ptr[1:] = np.cumsum(np.bincount(con, minlength=c))
-    tensors = (con_ptr, task[order].astype(np.int32),
-               rng.uniform(0.1, 3.0, e).astype(np.float32),
+    tensors = (con_ptr[None], task[order].astype(np.int32)[None],
+               rng.uniform(0.1, 3.0, (1, e)).astype(np.float32),
                rng.random((s, n)) < density,
                rng.uniform(0.1, 5.0, (s, c)).astype(np.float32),
-               rng.uniform(1.0, 4.0, n).astype(np.float32))
+               rng.uniform(1.0, 4.0, (1, n)).astype(np.float32))
     return [torch.from_numpy(np.ascontiguousarray(t)).to(dev)
             for t in tensors]
 
@@ -329,8 +362,8 @@ def kernel_maxmin(dag) -> dict:
     des = TorchDES(DESProblem(dag))
     a = des.arrays
     con_ptr, ent_task, ent_w = _incidence_csr(a)
-    S, N, C, E = LANES, a.n, a.num_cons, ent_task.numel()
-    real = a.task_valid.cpu().numpy().copy()
+    S, N, C, E = LANES, a.n, a.num_cons, ent_task.shape[1]
+    real = a.task_valid[0].cpu().numpy().copy()
     real[0] = False
     active = (rng.random((S, N)) < rng.uniform(0.02, 0.5, (S, 1))) & real
     caps = np.concatenate([rng.integers(1, 5, (S, a.num_link_cons)),
@@ -339,7 +372,7 @@ def kernel_maxmin(dag) -> dict:
             torch.from_numpy(caps.astype(np.float32)).to(dev), a.flows]
     max_abs, max_rel, rounds = _check_maxmin("fill_maxmin main shape", args)
     log(f"[kernels] fill_maxmin S={S} N={N} C={C} E={E} (megatron-462b CSR,"
-        f" max {int((con_ptr[1:] - con_ptr[:-1]).max())} entries per "
+        f" max {int((con_ptr[0, 1:] - con_ptr[0, :-1]).max())} entries per "
         f"constraint, {waterfill.maxmin_smem_bytes(N, C, E)} bytes of "
         f"shared memory per block): bit-equal to the plain version (max abs "
         f"err {max_abs:.3e}, max rel err {max_rel:.3e}); rounds per lane "
@@ -368,6 +401,127 @@ def kernel_maxmin(dag) -> dict:
             "launches": None, "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+
+
+def _stack_members(parts):
+    """M one-member (con_ptr, ent_task, ent_w, flows) on one member axis."""
+    import torch
+    return [torch.cat([p[i] for p in parts]).contiguous() for i in range(4)]
+
+
+def _member_args(dags, rng, dev):
+    """fill_maxmin's operands for an ensemble's members as
+    `EnsembleTorchDES` pads and stacks them: LANES genomes x M members of
+    random active sets and link capacities."""
+    import numpy as np
+    import torch
+    from repro_torch.core.des import DESProblem
+    from repro_torch.core.des_torch import EnsembleTorchDES, _incidence_csr
+    a = EnsembleTorchDES([DESProblem(d) for d in dags]).arrays
+    m, N, C = len(dags), a.n, a.num_cons
+    S = LANES * m
+    real = a.task_valid.cpu().numpy().copy()
+    real[:, 0] = False
+    dens = rng.uniform(0.02, 0.5, (LANES, 1, 1))
+    active = ((rng.random((LANES, m, N)) < dens) & real).reshape(S, N)
+    link = rng.integers(1, 5, (S, a.num_link_cons))
+    caps = np.concatenate([link, np.ones((S, C - a.num_link_cons))], 1)
+    return [*_incidence_csr(a), torch.from_numpy(active).to(dev),
+            torch.from_numpy(caps.astype(np.float32)).to(dev), a.flows]
+
+
+def kernel_maxmin_members(ensembles) -> None:
+    """fill_maxmin with a member axis (lane s reads member s % M) against
+    its plain version: M in {1, 2, 3} distinct random CSRs at S = M x
+    {1, 5, 48}, one problem read as both members of an M = 2 launch, and
+    the two megatron-462b members of each [robust] ensemble, padded to one
+    shape, at S = 96 lanes, with the time and bound of the first.
+    `ensembles` holds (tag, dags, whether their CSRs must differ)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import waterfill
+    from repro_torch.kernels.ref import fill_maxmin_ref
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15)
+    n, c, e, density = MEMBER_SWEEP
+    cases = 0
+    for m in (1, 2, 3):
+        for per in (1, 5, LANES):
+            s = m * per
+            parts = [_maxmin_instance(rng, s, n, c, e, density, dev)
+                     for _ in range(m)]
+            con_ptr, ent_task, ent_w, flows = _stack_members(
+                [(p[0], p[1], p[2], p[5]) for p in parts])
+            args = [con_ptr, ent_task, ent_w, parts[0][3], parts[0][4],
+                    flows]
+            _check_maxmin(f"fill_maxmin M={m} S={s}", args)
+            if m == 1 and s % 2 == 0:   # one problem as both of M = 2
+                got, rounds = waterfill.fill_maxmin(*args)
+                twice, twice_rounds = waterfill.fill_maxmin(
+                    *(t.expand(2, -1).contiguous() for t in args[:3]),
+                    args[3], args[4], args[5].expand(2, -1).contiguous())
+                if not (torch.equal(twice, got)
+                        and torch.equal(twice_rounds, rounds)):
+                    fail(f"fill_maxmin M=1 S={s}: one problem read as two "
+                         f"members differs from the one-member launch")
+            cases += 1
+    log(f"[kernels] fill_maxmin members sweep: {cases} cases (M in 1-3, S "
+        f"= M x 1/5/{LANES}, N={n} C={c} E={e}): bit-equal to the plain "
+        f"version, rounds equal, bit-identical reruns; one problem read as "
+        f"two members at S={LANES} bit-equal to its one-member launch")
+
+    for tag, dags, must_differ in ensembles:
+        args = _member_args(dags, rng, dev)
+        max_abs, _, rounds = _check_maxmin(f"fill_maxmin {tag}", args)
+        con_ptr, ent_task = args[0], args[1]
+        m, N = con_ptr.shape[0], args[3].shape[1]
+        S, C, E = args[3].shape[0], con_ptr.shape[1] - 1, ent_task.shape[1]
+        distinct = not all(torch.equal(t[0], t[j]) for t in args[:3] + args[5:]
+                           for j in range(m))
+        if must_differ and not distinct:
+            fail(f"fill_maxmin {tag}: the members' CSRs are equal")
+        if distinct:
+            # each member's lanes against a launch of that member alone:
+            # a kernel that ignored s % M would read member 0's CSR here
+            got, got_rounds = waterfill.fill_maxmin(*args)
+            for j in range(m):
+                one, one_rounds = waterfill.fill_maxmin(
+                    *(t[j:j + 1] for t in args[:3]),
+                    args[3][j::m].contiguous(), args[4][j::m].contiguous(),
+                    args[5][j:j + 1])
+                if not (torch.equal(one, got[j::m])
+                        and torch.equal(one_rounds, got_rounds[j::m])):
+                    fail(f"fill_maxmin {tag}: member {j}'s lanes differ "
+                         f"from a launch of member {j} alone")
+        log(f"[kernels] fill_maxmin {tag} S={S} M={m} N={N} C={C} E={E} "
+            f"(tasks {[d.num_tasks for d in dags]}, member-padded; the "
+            f"members' CSRs {'differ' if distinct else 'are equal'}): "
+            f"bit-equal to the plain version (max abs err {max_abs:.3e}); "
+            f"rounds per lane {min(rounds)}-{max(rounds)} (sum "
+            f"{sum(rounds)}), equal to the plain version's; bit-identical "
+            f"rerun" + ("; each member's lanes bit-equal to a launch of "
+                        "that member alone" if distinct else ""))
+        if tag == ensembles[0][0]:
+            timed = args, rounds
+    args, rounds = timed
+    m, N = args[0].shape[0], args[3].shape[1]
+    S, C, E = args[3].shape[0], args[0].shape[1] - 1, args[1].shape[1]
+    ms = time_ms(lambda: waterfill.fill_maxmin(*args))
+    plain_ms = time_ms(lambda: fill_maxmin_ref(*args), iters=20, warmup=3)
+    # bytes: every member's CSR and flows, active, caps read once, rates
+    # and rounds written once; operations as at the main shape
+    b_ms, b_by = bound_ms(
+        m * (4.0 * (C + 1) + 8.0 * E + 4.0 * N) + S * N + 4.0 * S * C
+        + 4.0 * S * N + 4.0 * S, sum(rounds) * (4.0 * E + 3.0 * C + N))
+    dev_us = {name: _device_us_per_call(fn, iters) for name, fn, iters in (
+        ("kernel", lambda: waterfill.fill_maxmin(*args), 50),
+        ("plain", lambda: fill_maxmin_ref(*args), 5))}
+    log(f"[kernels] fill_maxmin {ensembles[0][0]} S={S} M={m}: kernel "
+        f"{ms:.5f} ms/call "
+        f"(device {dev_us['kernel']}), plain {plain_ms:.5f} ms/call "
+        f"(device {dev_us['plain']}), no library call, bound {b_ms:.6f} ms "
+        f"({b_by}); members check wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def _bits_equal(name: str, got, want) -> None:
@@ -601,6 +755,18 @@ def _device_busy_s(fn) -> float:
     return _busy_s(_profile(fn))
 
 
+def _device_only_busy_s(fn) -> float:
+    """`_device_busy_s` from a trace of the device alone: no host-side
+    events, so the traced call costs little more than the call itself."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _busy_s(prof)
+
+
 def _host_syncs(fn) -> int:
     """Host syncs during one call of `fn`: the warnings of
     torch.cuda.set_sync_debug_mode("warn"), each one counted."""
@@ -641,18 +807,19 @@ def _device_us_by_kernel(fn, iters: int = 50) -> dict[str, float]:
     return out
 
 
-def _megatron_462b():
+def _megatron_462b(seq_len: int = 4096, microbatches: int = 128):
     from repro_torch.configs import PAPER_WORKLOADS, make_job
     from repro_torch.core.schedule import build_comm_dag
-    job = make_job(PAPER_WORKLOADS["megatron-462b"], seq_len=4096)
+    job = make_job(PAPER_WORKLOADS["megatron-462b"], seq_len=seq_len,
+                   microbatches=microbatches)
     dag = build_comm_dag(job, 400.0)
     n, deps, pods = dag.num_tasks, len(dag.deps), dag.cluster.num_pods
-    log(f"[des] megatron-462b Table I: {job.tp * job.pp * job.dp} GPUs, "
-        f"{job.num_microbatches} microbatches, {n} tasks, {deps} deps, "
-        f"{pods} pods")
-    if (n, deps, pods) != (801, 88096, 32):
-        fail(f"megatron-462b DAG is ({n}, {deps}, {pods}), expected "
-             f"(801, 88096, 32)")
+    log(f"[des] megatron-462b Table I at seq_len {seq_len}: "
+        f"{job.tp * job.pp * job.dp} GPUs, {job.num_microbatches} "
+        f"microbatches, {n} tasks, {deps} deps, {pods} pods")
+    want = {128: (801, 88096, 32), 64: (417, 23584, 32)}[microbatches]
+    if (n, deps, pods) != want:
+        fail(f"megatron-462b DAG is ({n}, {deps}, {pods}), expected {want}")
     return dag
 
 
@@ -1043,13 +1210,330 @@ def phase_paths(dag, t_up: float, steps: int) -> int:
     return launches
 
 
+def _trips_and_launches(tag: str, c: dict, batches: int) -> None:
+    """The fused path's counts of one run: one fill_maxmin launch per
+    trip, no fill_round launch, and some trips at all."""
+    log(f"[{tag}] {batches} fitness batches: {c['trips']:.0f} trips, "
+        f"{c['maxmin']} fill_maxmin launches, {c['launches']} fill_round "
+        f"launches; per batch {c['trips'] / max(batches, 1):.1f} trips and "
+        f"{c['maxmin'] / max(batches, 1):.1f} launches")
+    if c["maxmin"] != c["trips"] or c["maxmin"] == 0 or c["launches"]:
+        fail(f"{tag}: {c['maxmin']} fill_maxmin launches for "
+             f"{c['trips']:.0f} trips, {c['launches']} fill_round launches")
+
+
+def _robust_ga(generations: int):
+    from repro_torch.core.ga import GAOptions
+    return GAOptions(seed=0, pop_size=LANES, max_generations=generations,
+                     patience=60, time_limit=1e9)
+
+
+def _evolve_gen_s(kind: str) -> tuple[float, int]:
+    """Seconds per generation of the GA run `kind` (its ga.generation
+    spans inside its ga.evolve span) and its generations."""
+    from repro_torch import obs
+    recs = obs.TRACER.records
+    ev = [r for r in recs if r.name == "ga.evolve"
+          and r.attrs.get("kind") == kind]
+    if len(ev) != 1:
+        fail(f"expected one ga.evolve span of {kind}, found {len(ev)}")
+    t0, t1 = ev[0].t0, ev[0].t0 + ev[0].dur
+    gens = [r.dur for r in recs if r.name == "ga.generation"
+            and t0 <= r.t0 <= t1]
+    return sum(gens) / max(len(gens), 1), len(gens)
+
+
+def _engine_batch(tag: str, eng, space, masks=None) -> None:
+    """One fitness batch of LANES random genomes on ensemble engine `eng`
+    (LANES x M lanes): wall time, trips and launches, then the device's
+    busy time and idle share in a rerun traced on the device alone."""
+    import numpy as np
+    import torch
+    genomes = space.random_init_batch(np.random.default_rng(0), LANES)
+
+    def batch():
+        return eng.ensemble_genome_makespan(genomes, space.edge_u,
+                                            space.edge_v, masks)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, feas = batch()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    busy = _device_only_busy_s(batch)
+    log(f"[{tag}] one batch of {LANES} genomes x {eng.M} members "
+        f"({LANES * eng.M} lanes) on EnsembleTorchDES: {wall:.3f} s, "
+        f"{c['trips']:.0f} trips ({wall * 1e3 / c['trips']:.3f} ms per "
+        f"trip), {c['maxmin']} fill_maxmin launches, {int(feas.sum())} of "
+        f"{feas.size} lanes feasible; device busy {busy:.4f} s (rerun traced "
+        f"on the device, {busy * 1e3 / c['trips']:.4f} ms per trip), idle "
+        f"share "
+        + (f"{1.0 - busy / wall:.4f}" if busy else "not measured"))
+    if c["maxmin"] != c["trips"] or c["maxmin"] == 0:
+        fail(f"{tag} batch: {c['maxmin']} launches for {c['trips']} trips")
+
+
+def phase_robust(dags, mb_dags) -> None:
+    """plan(delta-robust, max-regret) of megatron-462b at two sequence
+    lengths, refs by the facade's delta-fast; then one 96-lane batch of
+    the ensemble engine alone and the winner on the card against the
+    numpy DES; then delta_robust on megatron-462b at two microbatch
+    counts, whose members differ in structure, and its winner likewise."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core.api import PlanRequest, plan
+    from repro_torch.core.dag import DagEnsemble
+    from repro_torch.core.des import DESProblem
+    from repro_torch.core.des_torch import EnsembleTorchDES
+    from repro_torch.core.ga import TopologySpace, delta_robust
+
+    t_phase = time.perf_counter()
+    ens = DagEnsemble(list(dags), names=[f"seq{s}" for s in
+                                         ROBUST_SEQ_LENS])
+    obs.TRACER.clear()
+    _reset_counts()             # this path's counts start at 0
+    t0 = time.perf_counter()
+    with obs.enabled():
+        res = plan(PlanRequest(ensemble=ens, method="delta-robust",
+                               objective="max-regret",
+                               ga_options=_robust_ga(ROBUST_GENERATIONS)))
+    wall = time.perf_counter() - t0
+    c = _counts()
+    spans = obs.TRACER.summary()
+    gen_s, gens = _evolve_gen_s("delta_robust")
+    log(f"[robust] plan(delta-robust, max-regret) {len(ens.members)} "
+        f"members x {LANES} genomes: {wall:.2f} s (refs by delta-fast "
+        f"{res.details['refs_s']:.2f} s), robust GA {gens} generations at "
+        f"{gen_s:.3f} s/generation, {res.details['evaluations']} "
+        f"evaluations")
+    log(f"[robust] refs {res.refs.tolist()}, makespans "
+        f"{res.makespans.tolist()}, regrets {res.regrets.tolist()}, worst "
+        f"regret {res.worst_regret!r}, {res.total_ports} ports")
+    _trips_and_launches("robust", c, spans["ga.fitness_batch"]["count"])
+    if gens != ROBUST_GENERATIONS or not res.feasible \
+            or not np.isfinite(res.regrets).all() \
+            or not res.worst_regret >= 1.0 - 1e-9:
+        fail(f"robust plan: generations {gens}, feasible {res.feasible}, "
+             f"regrets {res.regrets}")
+
+    # the ensemble engine alone: one 96-lane batch, then the winner
+    eng = EnsembleTorchDES([DESProblem(d) for d in dags])
+    _engine_batch("robust", eng, TopologySpace.for_ensemble(ens))
+    got, feas = eng.makespans(res.x)
+    rel = np.abs(got - res.makespans) / res.makespans
+    log(f"[robust] winner on the card {got.tolist()} vs the numpy DES "
+        f"{res.makespans.tolist()}: rel {rel.tolist()}")
+    if not feas.all() or not (rel <= DES_RTOL).all():
+        fail(f"robust winner: card {got} vs numpy {res.makespans}")
+
+    # members that differ in structure, padded to one shape: the lanes of
+    # each batch read two different CSRs
+    mb = DagEnsemble(list(mb_dags),
+                     names=[f"mb{m}" for m in ROBUST_MICROBATCHES])
+    obs.TRACER.clear()
+    _reset_counts()             # this path's counts start at 0
+    t0 = time.perf_counter()
+    with obs.enabled():
+        rob = delta_robust(mb, _robust_ga(ROBUST_GENERATIONS),
+                           objective="weighted", refs=np.ones(2))
+    wall = time.perf_counter() - t0
+    c = _counts()
+    spans = obs.TRACER.summary()
+    gen_s, gens = _evolve_gen_s("delta_robust")
+    log(f"[robust] delta_robust(weighted) of megatron-462b at "
+        f"{'/'.join(map(str, ROBUST_MICROBATCHES))} microbatches "
+        f"({[d.num_tasks for d in mb_dags]} tasks) x {LANES} genomes: "
+        f"{wall:.2f} s, {gens} generations at {gen_s:.3f} s/generation, "
+        f"makespans {rob.makespans.tolist()}, {rob.total_ports} ports")
+    _trips_and_launches("robust", c, spans["ga.fitness_batch"]["count"])
+    eng = EnsembleTorchDES([DESProblem(d) for d in mb_dags])
+    if not eng.pad.n > min(d.num_tasks for d in mb_dags) \
+            or gens != ROBUST_GENERATIONS or not rob.feasible:
+        fail(f"robust microbatch pair: pad {eng.pad}, generations {gens}, "
+             f"feasible {rob.feasible}")
+    got, feas = eng.makespans(rob.x)
+    rel = np.abs(got - rob.makespans) / rob.makespans
+    log(f"[robust] winner on the card {got.tolist()} vs the numpy DES "
+        f"{rob.makespans.tolist()}: rel {rel.tolist()} (members padded to "
+        f"{eng.pad.n} tasks)")
+    if not feas.all() or not (rel <= DES_RTOL).all():
+        fail(f"robust microbatch winner: card {got} vs numpy "
+             f"{rob.makespans}")
+    log(f"[robust] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def _failsafe_scenarios(dag, top: int = 3, planes: int = 4):
+    """The healthy fabric, then 1 of `planes` planes dark on each of the
+    `top` pod pairs that carry the most volume (ties by pair)."""
+    import numpy as np
+    vol: dict[tuple[int, int], float] = {}
+    for t in dag.real_tasks():
+        pair = tuple(sorted(t.pair))
+        vol[pair] = vol.get(pair, 0.0) + t.volume
+    pairs = sorted(vol, key=lambda p: (-vol[p], p))[:top]
+    P = dag.cluster.num_pods
+    out = [np.ones((P, P))]
+    for i, j in pairs:
+        m = np.ones((P, P))
+        m[i, j] = m[j, i] = (planes - 1) / planes
+        out.append(m)
+    return out, pairs
+
+
+def phase_failsafe(dag) -> None:
+    """plan() of megatron-462b under four fabric scenarios on the card,
+    its scenario makespans on the card against the numpy DES; then gpt-7b
+    under the default scenarios on the card and on the CPU."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.configs import PAPER_WORKLOADS, make_job
+    from repro_torch.core.api import FailureModel, PlanRequest, plan
+    from repro_torch.core.des import DESProblem
+    from repro_torch.core.des_torch import DESOptions, EnsembleTorchDES
+    from repro_torch.core.ga import GAOptions, TopologySpace
+    from repro_torch.core.schedule import build_comm_dag
+
+    t_phase = time.perf_counter()
+    scen, pairs = _failsafe_scenarios(dag)
+    obs.TRACER.clear()
+    _reset_counts()             # this path's counts start at 0
+    t0 = time.perf_counter()
+    with obs.enabled():
+        res = plan(PlanRequest(dag=dag, failure=FailureModel(scenarios=scen),
+                               ga_options=_robust_ga(ROBUST_GENERATIONS)))
+    wall = time.perf_counter() - t0
+    c = _counts()
+    spans = obs.TRACER.summary()
+    gen_s, gens = _evolve_gen_s("delta_failsafe")
+    worst = res.details["scenario_makespans"]
+    log(f"[failsafe] megatron-462b, {len(scen)} scenarios (healthy, 1 of 4 "
+        f"planes dark on pairs {pairs}) x {LANES} genomes = "
+        f"{len(scen) * LANES} lanes: {wall:.2f} s, {gens} generations at "
+        f"{gen_s:.3f} s/generation; makespan {res.makespan!r}, scenario "
+        f"makespans {worst}, {res.total_ports} ports")
+    _trips_and_launches("failsafe", c, spans["ga.fitness_batch"]["count"])
+    if gens != ROBUST_GENERATIONS or not res.feasible:
+        fail(f"failsafe plan: generations {gens}, feasible {res.feasible}")
+    eng = EnsembleTorchDES([DESProblem(dag)] * len(scen))
+    _engine_batch("failsafe", eng, TopologySpace(dag), np.stack(scen))
+    got, feas = eng.makespans(res.x, np.stack(scen))
+    rel = np.abs(got - np.asarray(worst)) / np.asarray(worst)
+    log(f"[failsafe] winner on the card {got.tolist()}: rel to the numpy "
+        f"DES {rel.tolist()}")
+    if not feas.all() or not (rel <= DES_RTOL).all():
+        fail(f"failsafe winner: card {got} vs numpy {worst}")
+
+    small = build_comm_dag(make_job(PAPER_WORKLOADS["gpt-7b"]), 400.0)
+    kw = dict(seed=0, pop_size=16, max_generations=6, patience=60,
+              time_limit=1e9)
+    card = plan(PlanRequest(dag=small, failure=FailureModel(),
+                            ga_options=GAOptions(**kw)))
+    cpu = plan(PlanRequest(dag=small, failure=FailureModel(),
+                           ga_options=GAOptions(**kw),
+                           des_options=DESOptions(device="cpu")))
+    same = bool(np.array_equal(card.x, cpu.x))
+    log(f"[failsafe] gpt-7b ({small.num_tasks} tasks, "
+        f"{len(card.details['scenario_makespans'])} default scenarios): "
+        f"card worst {card.details['worst_scenario_makespan']!r}, cpu "
+        f"{cpu.details['worst_scenario_makespan']!r}, identical x {same}")
+    if not same:
+        fail("gpt-7b failsafe plan on the card differs from the CPU's")
+    log(f"[failsafe] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def _gpt7b_milp_dag():
+    """The reference benchmark's MILP DAG: gpt-7b at Table-I width with 4
+    microbatches (benchmarks/common.py)."""
+    from repro_torch.configs import PAPER_WORKLOADS, make_job
+    from repro_torch.core.schedule import build_comm_dag
+    return build_comm_dag(make_job(PAPER_WORKLOADS["gpt-7b"], seq_len=4096,
+                                   microbatches=4), 400.0)
+
+
+def phase_milp() -> None:
+    """plan(delta-joint-hotstart) on gpt-7b: the hot-start GA on the card,
+    the MILP on the host, a validate-clean schedule no worse than the
+    same run's delta-fast."""
+    from repro_torch.core.api import PlanRequest, plan
+    from repro_torch.core.ga import GAOptions
+    from repro_torch.core.milp import MILPOptions, validate_solution
+
+    t_phase = time.perf_counter()
+    dag = _gpt7b_milp_dag()
+    ga = GAOptions(seed=0, pop_size=16, max_generations=6, patience=60,
+                   time_limit=1e9)
+    _reset_counts()             # this path's counts start at 0
+    t0 = time.perf_counter()
+    hot = plan(PlanRequest(dag=dag, method="delta-joint-hotstart",
+                           ga_options=ga,
+                           milp_options=MILPOptions(time_limit=120,
+                                                    mip_rel_gap=2e-3)))
+    wall = time.perf_counter() - t0
+    c = _counts()
+    fast = plan(PlanRequest(dag=dag, method="delta-fast", ga_options=ga))
+    sched = hot.details["schedule"]
+    errors = validate_solution(dag, sched)
+    st = hot.details["stats"]
+    log(f"[milp] gpt-7b {dag.num_tasks} tasks, {dag.cluster.num_pods} pods:"
+        f" plan(delta-joint-hotstart) {wall:.2f} s, status "
+        f"{hot.details['milp_status']}, solve {hot.details['solve_time']:.2f}"
+        f" s, hot-start GA {hot.details['hotstart_ga_s']:.2f} s, polish "
+        f"{st['hot_time']:.2f} s, K {st['K']}, {st['nvars']} variables, "
+        f"{st['nrows']} rows; {c['maxmin']} fill_maxmin launches in "
+        f"{c['trips']:.0f} trips")
+    log(f"[milp] makespan {hot.makespan!r} ({hot.details['comm_time_source']}"
+        f"), delta-fast {fast.makespan!r}; validate_solution "
+        f"{errors or 'clean'}")
+    if c["maxmin"] == 0 or c["maxmin"] != c["trips"]:
+        fail(f"milp: the hot-start GA made {c['maxmin']} fill_maxmin "
+             f"launches in {c['trips']} trips")
+    if not hot.feasible or errors \
+            or not hot.makespan <= fast.makespan * (1 + 1e-6):
+        fail(f"milp: feasible {hot.feasible}, errors {errors}, makespan "
+             f"{hot.makespan} vs delta-fast {fast.makespan}")
+    log(f"[milp] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_resilient() -> None:
+    """plan() of gpt-7b with a zero MILP budget: the fallback chain's GA
+    stage, on the card, gives a validate-clean plan."""
+    from repro_torch.core.api import FailureModel, PlanRequest, plan
+    from repro_torch.core.ga import GAOptions
+    from repro_torch.core.milp import validate_solution
+
+    t_phase = time.perf_counter()
+    dag = _gpt7b_milp_dag()
+    _reset_counts()             # this path's counts start at 0
+    res = plan(PlanRequest(
+        dag=dag, failure=FailureModel(resilient=True, budget_s=0),
+        ga_options=GAOptions(seed=0, pop_size=16, max_generations=6,
+                             patience=60, time_limit=1e9)))
+    c = _counts()
+    errors = validate_solution(dag, res.details["schedule"])
+    log(f"[resilient] gpt-7b budget 0: stage {res.details['fallback_stage']}"
+        f", degraded {res.details['degraded']}, makespan {res.makespan!r}, "
+        f"{c['maxmin']} fill_maxmin launches in {c['trips']:.0f} trips; "
+        f"validate_solution {errors or 'clean'}")
+    if res.details["fallback_stage"] != "ga" or c["maxmin"] == 0 \
+            or c["maxmin"] != c["trips"] or errors or not res.feasible:
+        fail(f"resilient: stage {res.details['fallback_stage']}, launches "
+             f"{c['maxmin']} in {c['trips']} trips, errors {errors}")
+    log(f"[resilient] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     phase_device()
     import torch
     phase_build()
     dag = _megatron_462b()
+    dags = (dag, *(_megatron_462b(s) for s in ROBUST_SEQ_LENS[1:]))
+    mb_dags = (dag, *(_megatron_462b(microbatches=m)
+                      for m in ROBUST_MICROBATCHES[1:]))
     waterfill = kernel_waterfill()
     maxmin = kernel_maxmin(dag)
+    kernel_maxmin_members([("seq-len pair", dags, False),
+                           ("microbatch pair", mb_dags, True)])
     tclosure, closure_steps = kernel_tclosure(dag)
     maxplus, paths_steps = kernel_maxplus(dag)
     phase_des(dag)
@@ -1057,6 +1541,12 @@ def main() -> int:
     phase_small_parity()
     tclosure["launches"], t_up = phase_xbound(dag, closure_steps)
     maxplus["launches"] = phase_paths(dag, t_up, paths_steps)
+    phase_robust(dags, mb_dags)
+    phase_failsafe(dag)
+    phase_milp()
+    phase_resilient()
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
+        f", the build included")
     log(json.dumps({"kernels": [waterfill, maxmin, tclosure, maxplus]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

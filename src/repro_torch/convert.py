@@ -6,7 +6,9 @@ packages pad a problem into the same flat numpy arrays (`_problem_fields`
 in `repro.core.des_jax` and `repro_torch.core.des_torch`, equal array for
 array), so these functions are the one place where numpy state becomes
 device tensors: the torch DES builds its arrays through them, and the
-parity tests feed the JAX reference's arrays through them.
+parity tests feed the JAX reference's arrays through them.  An ensemble's
+members, padded to one shape, stack on a leading member axis
+(`stack_problems` in both packages), and cross the same way.
 """
 from __future__ import annotations
 
@@ -31,8 +33,11 @@ _FIELD_SIZE = {"volume": "n", "flows": "n", "indegree": "n",
 class DESArrays(NamedTuple):
     """Static problem arrays of the torch DES, on one device.
 
-    Volumes are in seconds at one-circuit rate (the NIC bandwidth is
-    rescaled to 1), so every quantity stays O(1) in float32.
+    Every array carries a leading member axis: the M members of an
+    ensemble, padded to one shape, or M = 1 for one problem; the shapes
+    below are one member's, e.g. volume (M, n).  Volumes are in seconds
+    at one-circuit rate (the NIC bandwidth is rescaled to 1), so every
+    quantity stays O(1) in float32.
     """
     volume: torch.Tensor       # (n,) float32
     flows: torch.Tensor        # (n,) float32
@@ -53,21 +58,29 @@ class DESArrays(NamedTuple):
 
 def des_arrays_from_numpy(fields: dict[str, np.ndarray], pad: "PadSpec",
                           device: torch.device | str) -> DESArrays:
-    """One padded problem's numpy fields -> `DESArrays` on `device`.
+    """Padded numpy fields -> `DESArrays` on `device`: M members'
+    stacked on a leading member axis, each field (M, size) as
+    `stack_problems` gives them (one problem's fields take `[None]`).
 
     Floats become float32 (as the JAX reference's float32 arrays round
     them), indices int64, `indegree` int32 and `task_valid` bool.  Raises
-    on a missing or extra field or a length that disagrees with `pad`.
+    on a missing or extra field, or a shape that disagrees with `pad` or
+    with the other fields' member count.
     """
     if set(fields) != set(_FIELD_SIZE):
         raise ValueError(f"DES fields {sorted(fields)} differ from "
                          f"{sorted(_FIELD_SIZE)}")
+    shape = np.shape(fields["volume"])
+    if len(shape) != 2:
+        raise ValueError(f"DES fields have shape {shape}: they need a "
+                         f"leading member axis")
     out = {}
     for name, size_attr in _FIELD_SIZE.items():
         a = np.asarray(fields[name])
-        if a.shape != (getattr(pad, size_attr),):
+        if a.shape != (shape[0], getattr(pad, size_attr)):
             raise ValueError(f"DES field {name!r} has shape {a.shape}, pad "
-                             f"{size_attr}={getattr(pad, size_attr)}")
+                             f"{size_attr}={getattr(pad, size_attr)}, "
+                             f"members {shape[0]}")
         if name in _FLOAT_FIELDS:
             a = a.astype(np.float32)
         elif name in _INDEX_FIELDS:

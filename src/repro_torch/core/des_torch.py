@@ -7,8 +7,13 @@ start and finish are produced (the critical path stays on the numpy
 engine).
 
 Where the reference runs `jax.vmap` over a `lax.while_loop`, this engine
-carries the population as a leading axis of every state tensor and drives
-the loops from Python:
+carries the lanes as leading axes of every state tensor and drives the
+loops from Python.  A lane is one (genome, member) pair: `TorchDES`
+simulates one problem (one member), `EnsembleTorchDES` the M members of a
+`DagEnsemble` padded to one shape (`stack_problems`), as the reference's
+`EnsembleJaxDES` vmaps over them; both run the one event loop of
+`_LaneDES`, whose state is (genomes, members, tasks) and whose gathers and
+scatters read each lane's own member's arrays.
 
   * the event loop advances every lane to its next *distinct* event time
     per trip and retires every completion and start landing there, so
@@ -53,8 +58,9 @@ from repro_torch.kernels.ref import (csr_con_id, csr_warp_sums,
                                      progressive_filling)
 from repro_torch.obs import get_counter, span
 
-__all__ = ["DESArrays", "DESOptions", "PadSpec", "TorchDES",
-           "default_max_events", "MAXMIN_BACKENDS"]
+__all__ = ["DESArrays", "DESOptions", "EnsembleTorchDES", "PadSpec",
+           "TorchDES", "default_max_events", "member_pad", "stack_problems",
+           "MAXMIN_BACKENDS"]
 
 INF = math.inf
 MAXMIN_BACKENDS = ("auto", "cuda", "cuda-round", "ref", "segment")
@@ -202,34 +208,74 @@ def _problem_fields(p: DESProblem, pad: PadSpec) -> dict[str, np.ndarray]:
     }
 
 
+def member_pad(problems: list[DESProblem]) -> PadSpec:
+    """Across-member maxima of the exact per-member pad specs."""
+    links = max(p.num_link_cons for p in problems)
+    return PadSpec(
+        n=max(p.n for p in problems),
+        d=max(len(p.dep_pre) for p in problems),
+        e=max(len(p.con_task) for p in problems),
+        links=links,
+        cons=links + max(p.num_cons - p.num_link_cons for p in problems))
+
+
+def stack_problems(problems: list[DESProblem], pad: PadSpec | None = None,
+                   *, device: torch.device | str) -> DESArrays:
+    """Pad member DES problems to one fixed shape and stack them on `device`.
+
+    Every array field gains a leading member axis; the shapes take the
+    across-member maxima (or the caller's larger `pad`, e.g. a bucket) so
+    the one event loop serves all members.  Ghost-padding semantics are
+    `_problem_fields`'s; the stacked fields equal the reference's
+    `stack_problems`, array for array.
+    """
+    if not problems:
+        raise ValueError("stack_problems needs at least one member")
+    if pad is None:
+        pad = member_pad(problems)
+    if any(p.B != problems[0].B for p in problems):
+        raise ValueError("ensemble members must share the NIC bandwidth")
+    member_fields = [_problem_fields(p, pad) for p in problems]
+    return des_arrays_from_numpy(
+        {k: np.stack([f[k] for f in member_fields]) for k in member_fields[0]},
+        pad, device)
+
+
 def _dense_incidence(a: DESArrays) -> torch.Tensor:
-    """(C, n) constraint-task weight matrix for the dense backends (ghost
-    incidence entries add zero weight)."""
+    """(C, n) constraint-task weight matrix of one-member arrays for the
+    dense backends (ghost incidence entries add zero weight)."""
     w = torch.zeros((a.num_cons, a.n), dtype=torch.float32,
                     device=a.volume.device)
-    return w.index_put_((a.con_id, a.con_task), a.con_w, accumulate=True)
+    return w.index_put_((a.con_id[0], a.con_task[0]), a.con_w[0],
+                        accumulate=True)
 
 
 def _incidence_csr(a: DESArrays
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The incidence as CSR by constraint for the fused kernel:
-    (con_ptr (C+1,) int32, ent_task (E,) int32, ent_w (E,) float32).
+    """The incidence of each member as CSR by constraint for the fused
+    kernel: (con_ptr (M, C+1) int32, ent_task (M, E) int32, ent_w (M, E)
+    float32).
 
-    The entries are sorted stably by constraint, so each constraint keeps
-    its entries in their order; the ghost entries (task 0, constraint 0,
-    weight 0), which sit at the end of `con_id`, stay at the end of
-    constraint 0's row and add zero.  Raises on an entry outside (C, n)."""
+    Each member's entries are sorted stably by constraint, so each
+    constraint keeps its entries in their order; the ghost entries (task
+    0, constraint 0, weight 0), which sit at the end of `con_id`, stay at
+    the end of constraint 0's row and add zero.  Raises on an entry
+    outside (C, n)."""
     c, dev = a.num_cons, a.con_id.device
-    counts = torch.bincount(a.con_id, minlength=c)
-    if counts.numel() != c or bool((a.con_id < 0).any()) \
+    if bool((a.con_id < 0).any() | (a.con_id >= c).any()) \
             or bool(((a.con_task < 0) | (a.con_task >= a.n)).any()):
         raise ValueError(f"incidence entries outside {c} constraints x "
                          f"{a.n} tasks")
-    order = torch.sort(a.con_id, stable=True).indices
-    con_ptr = torch.zeros(c + 1, dtype=torch.int32, device=dev)
-    con_ptr[1:] = counts.cumsum(0)
-    return (con_ptr, a.con_task[order].to(torch.int32).contiguous(),
-            a.con_w[order].contiguous())
+    order = torch.sort(a.con_id, dim=1, stable=True).indices
+    counts = torch.zeros((a.con_id.shape[0], c), dtype=torch.int64,
+                         device=dev)
+    counts.scatter_add_(1, a.con_id, torch.ones_like(a.con_id))
+    con_ptr = torch.zeros((a.con_id.shape[0], c + 1), dtype=torch.int32,
+                          device=dev)
+    con_ptr[:, 1:] = counts.cumsum(1)
+    return (con_ptr,
+            a.con_task.gather(1, order).to(torch.int32).contiguous(),
+            a.con_w.gather(1, order).contiguous())
 
 
 # --------------------------------------------------------- fair-share rates
@@ -237,14 +283,24 @@ def _segment_sums(a: DESArrays
                   ) -> Callable[[torch.Tensor, torch.Tensor],
                                 tuple[torch.Tensor, torch.Tensor]]:
     """One filling round's per-constraint ``(used, denom)`` from (S, n)
-    ``level``/``unfrozen`` as one `index_add_` over the incidence
-    entries."""
+    ``level``/``unfrozen`` as one `index_add_` over the incidence entries
+    (of every member: member m's constraints take the m-th block of C,
+    lane s reading member s % M)."""
+    m, c = a.con_id.shape[0], a.num_cons
+    index = (a.con_id + c * torch.arange(
+        m, device=a.con_id.device)[:, None]).reshape(-1)
+
     def reduce(level, unfrozen):
-        vals = torch.stack([a.con_w * level[:, a.con_task],
-                            a.con_w * unfrozen[:, a.con_task]], -1)
-        out = torch.zeros((level.shape[0], a.num_cons, 2),
-                          dtype=torch.float32, device=level.device)
-        out.index_add_(1, a.con_id, vals)
+        pop = level.shape[0] // m
+
+        def at(x):
+            return a.con_w * torch.gather(x.view(pop, m, -1), 2,
+                                          a.con_task.expand(pop, m, -1))
+        vals = torch.stack([at(level), at(unfrozen)], -1)
+        out = torch.zeros((pop, m * c, 2), dtype=torch.float32,
+                          device=level.device)
+        out.index_add_(1, index, vals.view(pop, -1, 2))
+        out = out.view(pop * m, c, 2)
         return out[..., 0], out[..., 1]
     return reduce
 
@@ -254,7 +310,8 @@ def _rate_step(a: DESArrays, backend: str
                              tuple[torch.Tensor, torch.Tensor]]:
     """The max-min fair rate step of an event trip on `backend`, with the
     incidence it reads built here once: ``(active (S, n), caps (S, C)) ->
-    (rates (S, n), rounds (S,))``, the rounds each lane ran.
+    (rates (S, n), rounds (S,))``, the rounds each lane ran; lane s reads
+    member s % M.
 
     'cuda' runs every filling round of every lane in one launch of the
     fused kernel (`ops.fill_maxmin`) over the CSR incidence
@@ -264,8 +321,8 @@ def _rate_step(a: DESArrays, backend: str
     drive the same loop with a round's fused reduction pair ``used_c =
     sum_m W[c,m] phi_m active_m`` / ``denom_c = sum_m W[c,m] unfrozen_m``
     taken by one `ops.fill_round` launch over the dense incidence `W`
-    (`_dense_incidence`) or by one `index_add_` over the incidence
-    entries (`_segment_sums`)."""
+    (`_dense_incidence`; one problem only) or by one `index_add_` over
+    the incidence entries (`_segment_sums`)."""
     if backend == "cuda":
         csr = _incidence_csr(a)
         return lambda active, caps: ops.fill_maxmin(
@@ -276,6 +333,10 @@ def _rate_step(a: DESArrays, backend: str
         reduce = csr_warp_sums(*csr)
         con_id, con_task = csr_con_id(csr[0]), csr[1].long()
     elif backend == "cuda-round":
+        if a.con_id.shape[0] != 1:
+            raise ValueError("DES backend 'cuda-round' serves one problem; "
+                             "an ensemble runs on 'cuda', 'ref' or "
+                             "'segment'")
         W = _dense_incidence(a)
 
         def reduce(level, unfrozen):
@@ -302,88 +363,93 @@ def _maxmin(a: DESArrays, active: torch.Tensor, caps: torch.Tensor,
     return rates
 
 
-# ------------------------------------------------------------------ engine
-class TorchDES:
-    """Single and batched simulation of one CommDAG on one device.
+# ------------------------------------------------------------------ engines
+class _LaneDES:
+    """The batched event loop over lanes of (genome, member).
 
-    `arrays` replaces the problem's own padded arrays (`convert.
-    des_arrays_from_numpy` of another engine's fields); `problem` then
-    still gives the pod count and the task count of the result.
+    The state tensors are (G, M, n): G topologies, each simulated on all
+    M members of the stacked arrays.  The lanes of the rate step are the
+    same tensors flattened genome-major and member-minor (lane g * M + m
+    reads member m), the order of the reference's (pop, M) ensemble
+    output.  Every lane has its own event clock.
     """
 
-    def __init__(self, problem: DESProblem, max_events: int | None = None,
-                 options: DESOptions | None = None,
-                 arrays: DESArrays | None = None):
-        self.problem = problem
+    def _setup(self, problems: list[DESProblem], arrays: DESArrays | None,
+               max_events: int | None, options: DESOptions | None) -> None:
         self.options = options or DESOptions()
         self.device = self.options.resolve_device()
         self.backend = self.options.resolve_backend(self.device)
         if arrays is None:
-            pad = PadSpec.exact(problem)
+            pad = member_pad(problems)
             if self.options.bucket:
                 pad = pad.bucketed()
-            arrays = des_arrays_from_numpy(_problem_fields(problem, pad),
-                                           pad, self.device)
+            arrays = stack_problems(problems, pad, device=self.device)
         elif arrays.volume.device != self.device:
             raise ValueError(f"arrays live on {arrays.volume.device}, the "
                              f"engine on {self.device}")
         self.arrays = a = arrays
-        self.pad = PadSpec(n=a.n, d=len(a.dep_pre), e=len(a.con_task),
+        self.M = a.volume.shape[0]
+        self.pad = PadSpec(n=a.n, d=a.dep_pre.shape[1], e=a.con_task.shape[1],
                            links=a.num_link_cons, cons=a.num_cons)
         self.max_events = int(max_events or default_max_events(a.n))
-        self.P = problem.dag.cluster.num_pods
+        self.P = problems[0].dag.cluster.num_pods
         # the rate step, with the incidence it reads built once per
         # engine and shared by every round of every trip of every lane
         self._rates = _rate_step(a, self.backend)
         # x-independent initial state: virtual task 0 and the padding
         # ghosts are born done at t=0; deps from task 0 are met
         self._started0 = ~a.task_valid
-        self._started0[0] = True
-        from_virtual = torch.zeros(a.n, dtype=torch.int32, device=self.device)
-        from_virtual.index_add_(0, a.dep_succ, (a.dep_pre == 0).to(
+        self._started0[:, 0] = True
+        from_virtual = torch.zeros((self.M, a.n), dtype=torch.int32,
+                                   device=self.device)
+        from_virtual.scatter_add_(1, a.dep_succ, (a.dep_pre == 0).to(
             torch.int32))
         self._missing0 = a.indegree - from_virtual
 
     # ------------------------------------------------------------ event loop
-    def _retire_starts(self, t_now, started, finish, missing):
+    def _retire_starts(self, t_now, started, finish, missing, dep_pre,
+                       dep_succ):
         """Start every pending task whose ready time has arrived at
-        `t_now` (S,); returns the next pending ready time as well."""
-        a = self.arrays
-        lag = finish[:, a.dep_pre] + a.dep_delta
+        `t_now` (G, M); returns the next pending ready time as well.
+        `dep_pre`/`dep_succ` are the members' deps expanded to (G, M, d)."""
+        lag = torch.gather(finish, 2, dep_pre) + self.arrays.dep_delta
         ready = torch.zeros_like(finish)
-        ready.scatter_reduce_(1, a.dep_succ.expand(finish.shape[0], -1),
-                              lag, "amax", include_self=True)
+        ready.scatter_reduce_(2, dep_succ, lag, "amax", include_self=True)
         ready = torch.where((missing == 0) & ~started, ready, INF)
-        newly = ready <= (t_now * (1 + EPS) + EPS * 1e-3)[:, None]
-        t_ready = torch.where(newly, INF, ready).amin(1)
+        newly = ready <= (t_now * (1 + EPS) + EPS * 1e-3)[..., None]
+        t_ready = torch.where(newly, INF, ready).amin(-1)
         return started | newly, newly, ready, t_ready
 
-    def _simulate(self, xs: torch.Tensor, mask: torch.Tensor,
+    def _simulate(self, xs: torch.Tensor, masks: torch.Tensor,
                   ideal: bool = False):
-        """(S, P, P) topologies -> (makespan, feasible, start, finish),
-        each with a leading lane axis."""
-        a = self.arrays
-        S, n, dev = xs.shape[0], a.n, self.device
+        """(G, P, P) topologies under (M, P, P) link-availability masks ->
+        (makespan, feasible, start, finish), each with leading (G, M)."""
+        a, m = self.arrays, self.M
+        g, n, dev, p = xs.shape[0], a.n, self.device, self.P
         f32 = torch.float32
-        pa, pb = a.link_pair_a, a.link_pair_b
-        link_caps = xs[:, pa, pb].to(f32) * mask[pa, pb].to(f32)
+        links = a.link_pair_a * p + a.link_pair_b               # (M, L)
+        link_caps = xs.reshape(g, p * p)[:, links].to(f32) \
+            * masks.reshape(m, p * p).gather(1, links).to(f32)
         if ideal:
             link_caps = torch.full_like(link_caps, INF)
         caps = torch.cat([link_caps, torch.ones(
-            (S, a.num_cons - a.num_link_cons), dtype=f32, device=dev)], 1)
+            (g, m, a.num_cons - a.num_link_cons), dtype=f32, device=dev)], -1)
+        lane_caps = caps.view(g * m, a.num_cons)
+        dep_pre = a.dep_pre.expand(g, m, -1)
+        dep_succ = a.dep_succ.expand(g, m, -1)
 
-        rem = a.volume.expand(S, n)
-        started = self._started0.expand(S, n)
+        rem = a.volume.expand(g, m, n)
+        started = self._started0.expand(g, m, n)
         done = started
         start = torch.where(started, 0.0, INF)
         finish = start
-        missing = self._missing0.expand(S, n)
-        t = torch.zeros(S, dtype=f32, device=dev)
+        missing = self._missing0.expand(g, m, n)
+        t = torch.zeros((g, m), dtype=f32, device=dev)
         # retire the t=0 start events before the loop
         started, newly, ready, t_ready = self._retire_starts(
-            t, started, finish, missing)
+            t, started, finish, missing, dep_pre, dep_succ)
         start = torch.where(newly, ready, start)
-        feasible = torch.ones(S, dtype=torch.bool, device=dev)
+        feasible = torch.ones((g, m), dtype=torch.bool, device=dev)
         rounds = torch.zeros((), dtype=torch.int64, device=dev)
 
         for _ in range(self.max_events):
@@ -392,34 +458,36 @@ class TorchDES:
                 break
             _TRIPS.inc()
             active = started & ~done
-            rates, lane_rounds = self._rates(active & run[:, None], caps)
+            rates, lane_rounds = self._rates(
+                (active & run[..., None]).view(g * m, n), lane_caps)
+            rates = rates.view(g, m, n)
             rounds += lane_rounds.amax()
-            feas_new = feasible & torch.where(active, rates > 0, True).all(1)
+            feas_new = feasible & torch.where(active, rates > 0, True).all(-1)
             # rem / max(rates, 1e-300) in the reference: the clamp is 0 in
             # float32 and where() drops the rate-0 tasks
             dt_done = torch.where(active & (rates > 0), rem / rates, INF)
-            t_next = torch.minimum(t + dt_done.amin(1), t_ready)
+            t_next = torch.minimum(t + dt_done.amin(-1), t_ready)
             dt = (t_next - t).clamp_min(0.0)
             rem_new = torch.where(
-                active, (rem - rates * dt[:, None]).clamp_min(0.0), rem)
-            dt_rem = dt_done - dt[:, None]
-            newdone = active & torch.isfinite(t_next)[:, None] & (
+                active, (rem - rates * dt[..., None]).clamp_min(0.0), rem)
+            dt_rem = dt_done - dt[..., None]
+            newdone = active & torch.isfinite(t_next)[..., None] & (
                 (rem_new <= VEPS * a.volume.clamp_min(1e-9))
-                | (dt_rem <= (TEPS * t_next.clamp_min(1e-9))[:, None]))
-            finish_new = torch.where(newdone, t_next[:, None], finish)
+                | (dt_rem <= (TEPS * t_next.clamp_min(1e-9))[..., None]))
+            finish_new = torch.where(newdone, t_next[..., None], finish)
             done_new = done | newdone
-            met = torch.zeros((S, n), dtype=torch.int32, device=dev)
-            met.index_add_(1, a.dep_succ, newdone[:, a.dep_pre].to(
-                torch.int32))
+            met = torch.zeros((g, m, n), dtype=torch.int32, device=dev)
+            met.scatter_add_(2, dep_succ, torch.gather(newdone, 2, dep_pre)
+                             .to(torch.int32))
             missing_new = missing - met
             # retire the start events at t_next in the same trip (readiness
             # against the post-completion finish/missing state)
             started_new, newly, ready, t_ready_new = self._retire_starts(
-                t_next, started, finish_new, missing_new)
+                t_next, started, finish_new, missing_new, dep_pre, dep_succ)
             start_new = torch.where(newly, ready, start)
-            t_new = torch.where(done_new.all(1), -INF, t_next)  # exit flag
+            t_new = torch.where(done_new.all(-1), -INF, t_next)  # exit flag
 
-            r = run[:, None]
+            r = run[..., None]
             t = torch.where(run, t_new, t)
             t_ready = torch.where(run, t_ready_new, t_ready)
             feasible = torch.where(run, feas_new, feasible)
@@ -432,20 +500,55 @@ class TorchDES:
 
         if _ROUNDS.enabled:
             _ROUNDS.inc(int(rounds))          # one host read per simulation
-        feasible = feasible & done.all(1)
-        last = torch.where(torch.isfinite(finish), finish, -INF).amax(1)
+        feasible = feasible & done.all(-1)
+        last = torch.where(torch.isfinite(finish), finish, -INF).amax(-1)
         makespan = torch.where(feasible, last, INF)
         return makespan, feasible, start, finish
 
-    # ------------------------------------------------------------ entries
-    def _mask(self, mask) -> torch.Tensor:
-        """(P, P) link-availability factor (1 = healthy, 0 = dark); None
-        means a healthy fabric.  It scales link capacities only."""
-        if mask is None:
-            return torch.ones((self.P, self.P), dtype=torch.float32,
+    def _genome_topologies(self, genomes, edge_u, edge_v) -> torch.Tensor:
+        """(G, E) genomes over the pairs (edge_u, edge_v) -> (G, P, P)
+        symmetric topologies, scattered on the device."""
+        g = topology_from_numpy(genomes, self.device)
+        eu = topology_from_numpy(np.asarray(edge_u, dtype=np.int64),
+                                 self.device)
+        ev = topology_from_numpy(np.asarray(edge_v, dtype=np.int64),
+                                 self.device)
+        xs = torch.zeros((g.shape[0], self.P, self.P), dtype=g.dtype,
+                         device=self.device)
+        xs[:, eu, ev] = g
+        xs[:, ev, eu] = g
+        return xs
+
+    def _masks(self, masks) -> torch.Tensor:
+        """(M, P, P) per-member link-availability factors (1 = healthy,
+        0 = dark); None means a healthy fabric, and one (P, P) mask serves
+        every member.  They scale link capacities only."""
+        if masks is None:
+            return torch.ones((self.M, self.P, self.P), dtype=torch.float32,
                               device=self.device)
-        return topology_from_numpy(np.asarray(mask, dtype=np.float32),
-                                   self.device)
+        t = topology_from_numpy(np.asarray(masks, dtype=np.float32),
+                                self.device)
+        return t.expand(self.M, self.P, self.P) if t.dim() == 2 else t
+
+
+class TorchDES(_LaneDES):
+    """Single and batched simulation of one CommDAG on one device: the
+    event loop with one member.
+
+    `arrays` replaces the problem's own padded arrays with one-member
+    arrays (`convert.des_arrays_from_numpy` of another engine's fields,
+    each with a member axis of 1); `problem` then still gives the pod
+    count and the task count of the result.
+    """
+
+    def __init__(self, problem: DESProblem, max_events: int | None = None,
+                 options: DESOptions | None = None,
+                 arrays: DESArrays | None = None):
+        self.problem = problem
+        self._setup([problem], arrays, max_events, options)
+        if self.M != 1:
+            raise ValueError(f"TorchDES simulates one problem; the arrays "
+                             f"hold {self.M} members (EnsembleTorchDES)")
 
     def makespan(self, x, ideal: bool = False, mask=None) -> float:
         return self.simulate(x, ideal=ideal, mask=mask)[0]
@@ -455,19 +558,20 @@ class TorchDES:
         the padding ghosts stripped from start/finish."""
         with span("des.simulate", entry="single", n=self.pad.n):
             xs = topology_from_numpy(x, self.device)[None]
-            ms, feas, start, finish = self._simulate(xs, self._mask(mask),
+            ms, feas, start, finish = self._simulate(xs, self._masks(mask),
                                                      ideal)
             n = self.problem.n
-            return (float(ms[0]), bool(feas[0]),
-                    start[0, :n].cpu().numpy(), finish[0, :n].cpu().numpy())
+            return (float(ms[0, 0]), bool(feas[0, 0]),
+                    start[0, 0, :n].cpu().numpy(),
+                    finish[0, 0, :n].cpu().numpy())
 
     def batch_makespan(self, xs, mask=None) -> tuple[np.ndarray, np.ndarray]:
         """Makespans + feasibility for a (pop, P, P) batch of topologies."""
         xs = topology_from_numpy(xs, self.device)
         with span("des.simulate", entry="batch_x", n=self.pad.n,
                   pop=int(xs.shape[0])):
-            ms, feas, _, _ = self._simulate(xs, self._mask(mask))
-            return ms.cpu().numpy(), feas.cpu().numpy()
+            ms, feas, _, _ = self._simulate(xs, self._masks(mask))
+            return ms[:, 0].cpu().numpy(), feas[:, 0].cpu().numpy()
 
     def batch_genome_makespan(self, genomes, edge_u, edge_v, mask=None
                               ) -> tuple[np.ndarray, np.ndarray]:
@@ -475,16 +579,51 @@ class TorchDES:
         (pop, P, P) topologies on the device and simulate them as one
         batch -- one host->device copy of the genomes, one device->host
         copy of (makespan, feasible)."""
-        g = topology_from_numpy(genomes, self.device)
-        eu = topology_from_numpy(np.asarray(edge_u, dtype=np.int64),
-                                 self.device)
-        ev = topology_from_numpy(np.asarray(edge_v, dtype=np.int64),
-                                 self.device)
         with span("des.simulate", entry="batch_genomes", n=self.pad.n,
-                  pop=int(g.shape[0])):
-            xs = torch.zeros((g.shape[0], self.P, self.P), dtype=g.dtype,
-                             device=self.device)
-            xs[:, eu, ev] = g
-            xs[:, ev, eu] = g
-            ms, feas, _, _ = self._simulate(xs, self._mask(mask))
+                  pop=int(np.shape(genomes)[0])):
+            xs = self._genome_topologies(genomes, edge_u, edge_v)
+            ms, feas, _, _ = self._simulate(xs, self._masks(mask))
+            return ms[:, 0].cpu().numpy(), feas[:, 0].cpu().numpy()
+
+
+class EnsembleTorchDES(_LaneDES):
+    """Batched DES over the members of a `DagEnsemble`: genomes x members
+    in one event loop, one `fill_maxmin` launch per trip for all lanes.
+
+    Member problems are padded to one shape (`stack_problems`), so GA
+    fitness over a whole population is one (pop, E) genome upload and one
+    (pop, M) (makespan, feasible) download per generation, whatever the
+    ensemble's size.  `arrays` replaces the stacked arrays (`convert.
+    des_arrays_from_numpy` of the reference's `stack_problems` fields).
+    """
+
+    def __init__(self, problems: list[DESProblem],
+                 max_events: int | None = None,
+                 options: DESOptions | None = None,
+                 arrays: DESArrays | None = None):
+        if not problems:
+            raise ValueError("EnsembleTorchDES needs at least one member")
+        self.problems = problems
+        self._setup(problems, arrays, max_events, options)
+        if self.M != len(problems):
+            raise ValueError(f"{len(problems)} problems but the arrays hold "
+                             f"{self.M} members")
+
+    def ensemble_genome_makespan(self, genomes, edge_u, edge_v, masks=None
+                                 ) -> tuple[np.ndarray, np.ndarray]:
+        """(pop, E) genomes over the union pairs -> (pop, M) makespans and
+        feasibility under the (M, P, P) or (P, P) `masks`: one batch of
+        pop x M lanes."""
+        with span("des.simulate", entry="ensemble_genomes", n=self.pad.n,
+                  pop=int(np.shape(genomes)[0]), members=self.M):
+            xs = self._genome_topologies(genomes, edge_u, edge_v)
+            ms, feas, _, _ = self._simulate(xs, self._masks(masks))
             return ms.cpu().numpy(), feas.cpu().numpy()
+
+    def makespans(self, x, masks=None) -> tuple[np.ndarray, np.ndarray]:
+        """Per-member (makespan, feasible) for one (P, P) topology."""
+        with span("des.simulate", entry="ensemble_x", n=self.pad.n,
+                  members=self.M):
+            xs = topology_from_numpy(x, self.device)[None]
+            ms, feas, _, _ = self._simulate(xs, self._masks(masks))
+            return ms[0].cpu().numpy(), feas[0].cpu().numpy()

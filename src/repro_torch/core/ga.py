@@ -1,7 +1,11 @@
 """DELTA-Fast: DES-accelerated domain-adapted genetic algorithm
 (paper Sec. IV-B, Algs. 3, 5, 6) -- population-array-resident engine.
 
-The port of `repro/core/ga.py`'s single-DAG path.  Genome = integer
+The port of `repro/core/ga.py`'s single-DAG path (`delta_fast`) and its
+ensemble engines (`delta_robust`: one topology for the members of a
+`DagEnsemble`; `delta_failsafe`: one topology under fabric-failure
+scenarios), which score genomes x members in one batched call of
+`EnsembleTorchDES`.  Genome = integer
 circuit counts over the active undirected pod pairs, bounded by the Alg. 2
 capacity bounds X̄ and repaired against the physical port budgets U.
 Fitness = DES makespan (primary) and total allocated circuits (secondary,
@@ -23,13 +27,14 @@ Fitness backends:
 from __future__ import annotations
 
 import time
+from collections.abc import Callable, Sequence
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from repro_torch.core.dag import CommDAG
+from repro_torch.core.dag import CommDAG, DagEnsemble
 from repro_torch.core.des import DESProblem, simulate
-from repro_torch.core.des_torch import DESOptions, TorchDES
+from repro_torch.core.des_torch import DESOptions, EnsembleTorchDES, TorchDES
 from repro_torch.core.xbound import x_upper_bound
 from repro_torch.obs import get_counter, span
 
@@ -87,13 +92,45 @@ class TopologySpace:
     def __init__(self, dag: CommDAG, xbar: np.ndarray | None = None):
         self.dag = dag
         xbar_m = np.asarray(xbar if xbar is not None else x_upper_bound(dag))
-        cluster = dag.cluster
-        edges = dag.undirected_pairs()
+        self._setup(dag.cluster, dag.undirected_pairs(), xbar_m)
+
+    @classmethod
+    def for_ensemble(cls, ensemble: DagEnsemble,
+                     xbar: np.ndarray | None = None, *,
+                     port_limits: Sequence[int] | None = None,
+                     min_circuits: int = 1) -> "TopologySpace":
+        """Search space over the *union* of the members' active pairs.
+
+        Per-pair capacity bound: the member-wise max of the Alg. 2 bounds
+        (a circuit count useful to any member must stay reachable).
+
+        `port_limits` overrides the cluster's per-pod budgets -- the
+        k-plane decomposition searches sub-fabrics (a subset of each pod's
+        ports) over the same pair space.  `min_circuits=0` admits empty
+        pairs, which a *supplementary* plane needs (its lane only tops up
+        pairs the base planes already connect)."""
+        obj = cls.__new__(cls)
+        obj.dag = None
+        xbar_m = np.asarray(xbar if xbar is not None
+                            else ensemble_x_upper_bound(ensemble))
+        obj._setup(ensemble.cluster, ensemble.undirected_pairs(), xbar_m,
+                   port_limits=port_limits, min_circuits=min_circuits)
+        return obj
+
+    def _setup(self, cluster, edges: list[tuple[int, int]],
+               xbar_m: np.ndarray, *,
+               port_limits: Sequence[int] | None = None,
+               min_circuits: int = 1) -> None:
         self.P = cluster.num_pods
-        self.U = np.asarray(cluster.port_limits, dtype=np.int64)
-        # every active pair keeps one circuit (connectivity); the ensemble
-        # planes of the reference also admit empty pairs (a later slice)
-        self.g_min = 1
+        self.U = np.asarray(port_limits if port_limits is not None
+                            else cluster.port_limits, dtype=np.int64)
+        if self.U.shape != (self.P,):
+            raise ValueError(f"port_limits needs {self.P} entries, "
+                             f"got shape {self.U.shape}")
+        if min_circuits not in (0, 1):
+            raise ValueError(f"min_circuits must be 0 or 1, "
+                             f"got {min_circuits}")
+        self.g_min = int(min_circuits)
         self.edges = edges
         self.E = len(self.edges)
         earr = np.asarray(self.edges, dtype=np.int64).reshape(-1, 2)
@@ -110,7 +147,8 @@ class TopologySpace:
         self.inc[self.edge_v, np.arange(self.E)] = 1
         self.degree = self.inc.sum(axis=1)
         # quick feasibility: connectivity needs one port per incident edge
-        if (self.degree > self.U).any():
+        # (moot when empty pairs are admitted)
+        if self.g_min > 0 and (self.degree > self.U).any():
             p = int(np.argmax(self.degree - self.U))
             raise ValueError(
                 f"pod {p} has {int(self.degree[p])} active pairs but "
@@ -208,11 +246,11 @@ class TopologySpace:
 
 
 class _CachedFitness:
-    """Shared population-fitness plumbing (the reference shares it with
-    its ensemble engines): vectorized `np.unique` dedup backed by a
-    bytes-keyed score cache, fixed-shape padding (a multiple of
-    `pop_size`, so every generation is one batch of the same shape with
-    O(1) host<->device transfers), and the lexicographic port penalty.  Subclasses provide
+    """Shared population-fitness plumbing for the single-DAG and ensemble
+    engines: vectorized `np.unique` dedup backed by a bytes-keyed score
+    cache, fixed-shape padding (a multiple of `pop_size`, so every
+    generation is one batch of the same shape with O(1) host<->device
+    transfers), and the lexicographic port penalty.  Subclasses provide
     `_raw_scores` mapping unique (S, E) genomes to makespan-like scores
     (lower is better, INF marks infeasible)."""
 
@@ -358,6 +396,27 @@ def _evolve(space: TopologySpace, fit, opts: GAOptions,
     return best_g, best_f, history, gen
 
 
+def _exact_rerank(fit: _CachedFitness, best_g: np.ndarray,
+                  score_of: Callable[[np.ndarray], float],
+                  port_weight: float) -> np.ndarray:
+    """The winner among the 8 best distinct cached genomes, re-ranked by
+    `score_of` (the exact numpy DES; the batched torch fitness runs in
+    float32, with ~1e-5 ranking noise) plus the port penalty; `best_g`
+    when none of them scores finite."""
+    ranked = sorted(fit.cache.items(), key=lambda kv: kv[1])[:8]
+    best_key, best_score = best_g.tobytes(), INF
+    for key, fval in ranked:
+        if not np.isfinite(fval):
+            continue
+        g = np.frombuffer(key, dtype=np.int64)
+        score = score_of(g)
+        if np.isfinite(score):
+            score += port_weight * float(g.sum())
+        if score < best_score:
+            best_score, best_key = score, key
+    return np.frombuffer(best_key, dtype=np.int64)
+
+
 def delta_fast(dag: CommDAG, opts: GAOptions | None = None,
                xbar: np.ndarray | None = None,
                seeds: list[np.ndarray] | None = None) -> GAResult:
@@ -379,21 +438,293 @@ def delta_fast(dag: CommDAG, opts: GAOptions | None = None,
               edges=space.E):
         best_g, _, history, gen = _evolve(space, fit, opts, rng, t0, seeds)
 
-    # re-rank the best distinct candidates with the exact numpy DES (the
-    # batched torch fitness runs in float32; ~1e-5 ranking noise)
-    ranked = sorted(fit.cache.items(), key=lambda kv: kv[1])[:8]
-    best_x, best_ms = space.to_matrix(best_g), INF
-    for key, fval in ranked:
-        if not np.isfinite(fval):
-            continue
-        g = np.frombuffer(key, dtype=np.int64)
-        x = space.to_matrix(g)
-        ms = simulate(fit.problem, x).makespan
-        port_pen = opts.port_weight * float(g.sum())
-        if ms + port_pen < best_ms:
-            best_ms, best_x = ms + port_pen, x
+    best_x = space.to_matrix(_exact_rerank(
+        fit, best_g,
+        lambda g: simulate(fit.problem, space.to_matrix(g)).makespan,
+        opts.port_weight))
     ms = simulate(fit.problem, best_x).makespan
     return GAResult(x=best_x, makespan=float(ms), generations=gen,
                     evaluations=fit.evaluations, elapsed=time.time() - t0,
                     history=history, feasible=np.isfinite(ms))
 
+
+# ------------------------------------------------------------- DELTA-Robust
+ROBUST_OBJECTIVES = ("weighted", "max-regret")
+
+
+def ensemble_x_upper_bound(ensemble: DagEnsemble) -> np.ndarray:
+    """Union-space Alg. 2 bound: elementwise max of the member bounds."""
+    return np.maximum.reduce([x_upper_bound(m) for m in ensemble.members])
+
+
+class EnsembleFitness(_CachedFitness):
+    """Population fitness over a `DagEnsemble`.
+
+    Same plumbing as `BatchedFitness` (shared `_CachedFitness` base), but
+    every unique genome is scored against *all* ensemble members in one
+    `EnsembleTorchDES.ensemble_genome_makespan` call (genomes x members
+    lanes in one event loop), then scalarized:
+
+      weighted   : sum_m w_m * makespan_m
+      max-regret : max_m  makespan_m / refs_m
+
+    `masks`, one (P, P) link-availability mask per member (None: the
+    healthy fabric), scale each member's link capacities.  Any
+    member-infeasible genome scores INF.  Building the engine is not
+    guarded: a device or kernel that fails raises here.
+    """
+
+    def __init__(self, ensemble: DagEnsemble, space: TopologySpace,
+                 opts: GAOptions, objective: str, refs: np.ndarray,
+                 masks: np.ndarray | None = None):
+        self.ensemble = ensemble
+        self.problems = [DESProblem(m) for m in ensemble.members]
+        super().__init__(space, opts, max(p.n for p in self.problems))
+        self.objective = objective
+        self.refs = np.asarray(refs, dtype=np.float64)
+        self.weights = np.asarray(ensemble.weights, dtype=np.float64)
+        self.masks = masks if masks is None else np.asarray(
+            masks, dtype=np.float64)
+        self._des = None
+        if self._use_device and space.E > 0:
+            self._des = EnsembleTorchDES(self.problems,
+                                         options=opts.des_options)
+
+    def scalarize(self, ms: np.ndarray) -> np.ndarray:
+        """(S, M) member makespans -> (S,) objective values (INF-safe)."""
+        ms = np.asarray(ms, dtype=np.float64).reshape(-1, len(self.problems))
+        with np.errstate(invalid="ignore"):
+            if self.objective == "weighted":
+                out = ms @ self.weights
+            else:
+                out = (ms / self.refs).max(axis=1)
+        out[~np.isfinite(ms).all(axis=1)] = INF
+        return out
+
+    def member_makespans(self, genomes: np.ndarray) -> np.ndarray:
+        """(S, E) genomes -> (S, M) makespans (INF where infeasible)."""
+        genomes = np.asarray(genomes, dtype=np.int64).reshape(-1,
+                                                              self.space.E)
+        if self._des is not None:
+            genomes, k = self._padded(genomes)
+            ms, feas = self._des.ensemble_genome_makespan(
+                genomes, self.space.edge_u, self.space.edge_v,
+                masks=self.masks)
+            self.batch_calls += 1
+            return np.where(feas, ms, INF)[:k]
+        return np.array([self._exact(x) for x in
+                         self.space.to_matrix_batch(genomes)]).reshape(
+                             len(genomes), len(self.problems))
+
+    def exact_member_makespans(self, genome: np.ndarray) -> np.ndarray:
+        """Exact (numpy DES) per-member makespans of one genome."""
+        return self._exact(self.space.to_matrix(genome))
+
+    def _exact(self, x: np.ndarray) -> np.ndarray:
+        if self.masks is None:
+            return np.array([simulate(p, x).makespan for p in self.problems])
+        return np.array([simulate(p, x * m).makespan
+                         for p, m in zip(self.problems, self.masks)])
+
+    def _raw_scores(self, genomes: np.ndarray) -> np.ndarray:
+        return self.scalarize(self.member_makespans(genomes))
+
+
+def _rerank_members(fit: EnsembleFitness, best_g: np.ndarray,
+                    opts: GAOptions) -> tuple[np.ndarray, np.ndarray]:
+    """`_exact_rerank` by the scalarized exact per-member makespans: the
+    winner genome and its (M,) makespans."""
+    g = _exact_rerank(
+        fit, best_g,
+        lambda g: float(fit.scalarize(fit.exact_member_makespans(g)[None])
+                        [0]), opts.port_weight)
+    return g, fit.exact_member_makespans(g)
+
+
+@dataclass
+class RobustGAResult:
+    """One static topology scored against every ensemble member."""
+
+    x: np.ndarray
+    makespans: np.ndarray          # (M,) exact per-member DES makespans
+    regrets: np.ndarray            # (M,) makespans / refs
+    refs: np.ndarray               # (M,) reference (best single-DAG) spans
+    weights: np.ndarray            # (M,) normalized mixture weights
+    objective: str
+    objective_value: float
+    generations: int
+    evaluations: int
+    elapsed: float
+    history: list[float] = field(default_factory=list)
+    feasible: bool = True
+
+    @property
+    def worst_regret(self) -> float:
+        return float(self.regrets.max()) if len(self.regrets) else INF
+
+    @property
+    def weighted_makespan(self) -> float:
+        return float(self.makespans @ self.weights)
+
+    @property
+    def total_ports(self) -> int:
+        return int(self.x.sum())
+
+
+def delta_robust(ensemble: DagEnsemble, opts: GAOptions | None = None,
+                 objective: str = "max-regret",
+                 refs: np.ndarray | None = None,
+                 xbar: np.ndarray | None = None) -> RobustGAResult:
+    """DELTA-Robust: one static topology for a *set* of DAGs.
+
+    Runs the same domain-adapted GA as `delta_fast` (identical RNG stream
+    and loop -- a singleton ensemble reduces exactly to the single-DAG
+    path) over the union pair space, with per-genome fitness scored
+    against every member in one batched DES call.
+
+    `refs` are the per-member reference makespans defining regret
+    (member's best single-DAG plan).  When omitted they are computed here
+    by running `delta_fast` per member with the same options.
+    """
+    opts = opts or GAOptions()
+    if objective not in ROBUST_OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}; "
+                         f"pick from {ROBUST_OBJECTIVES}")
+    t_start = time.time()
+    if refs is None:
+        refs = np.array([delta_fast(m, opts).makespan
+                         for m in ensemble.members])
+    refs = np.asarray(refs, dtype=np.float64)
+    if refs.shape != (ensemble.num_members,):
+        raise ValueError("refs must have one entry per ensemble member")
+    if not (np.isfinite(refs) & (refs > 0)).all():
+        raise ValueError(f"refs must be finite positive makespans: {refs}")
+
+    rng = np.random.default_rng(opts.seed)
+    space = TopologySpace.for_ensemble(ensemble, xbar)
+    fit = EnsembleFitness(ensemble, space, opts, objective, refs)
+    # the robust GA gets its own full time budget: the per-member ref
+    # runs above must not eat into _evolve's wall-clock limit
+    t0 = time.time()
+
+    if space.E == 0:    # no member has inter-pod traffic
+        x = np.zeros((space.P, space.P), dtype=np.int64)
+        ms = fit.exact_member_makespans(np.zeros(0, dtype=np.int64))
+        obj = float(fit.scalarize(ms[None])[0])
+        return RobustGAResult(
+            x=x, makespans=ms, regrets=ms / refs, refs=refs,
+            weights=np.asarray(ensemble.weights),
+            objective=objective, objective_value=obj, generations=0,
+            evaluations=1, elapsed=time.time() - t_start, history=[obj],
+            feasible=bool(np.isfinite(ms).all()))
+
+    with span("ga.evolve", kind="delta_robust", pop=opts.pop_size,
+              edges=space.E, members=ensemble.num_members):
+        best_g, _, history, gen = _evolve(space, fit, opts, rng, t0)
+    best_g, best_ms = _rerank_members(fit, best_g, opts)
+    obj = float(fit.scalarize(best_ms[None])[0])
+    return RobustGAResult(
+        x=space.to_matrix(best_g), makespans=best_ms,
+        regrets=best_ms / refs, refs=refs,
+        weights=np.asarray(ensemble.weights), objective=objective,
+        objective_value=obj, generations=gen, evaluations=fit.evaluations,
+        elapsed=time.time() - t_start, history=history,
+        feasible=bool(np.isfinite(best_ms).all()))
+
+
+# ----------------------------------------------------------- DELTA-Failsafe
+FAILSAFE_OBJECTIVES = ("worst", "weighted")
+
+
+def failure_scenarios(dag: CommDAG, num_planes: int = 4, k: int = 1,
+                      include_healthy: bool = True) -> list[np.ndarray]:
+    """Fractional k-plane-loss masks for the k-failure worst-case plan.
+
+    One scenario per active pod pair: k of the `num_planes` OCS planes
+    serving that pair go dark, leaving (num_planes - k)/num_planes of its
+    circuit capacity.  The haircut is *fractional* on purpose -- circuits
+    are the only route between a pair, so a full kill would make the worst
+    case inf for every topology.  The healthy fabric is scenario 0, keeping
+    the worst-case plan honest on the intact fabric too.
+    """
+    P = dag.cluster.num_pods
+    frac = max(num_planes - k, 0) / num_planes
+    out = [np.ones((P, P))] if include_healthy else []
+    for (i, j) in dag.undirected_pairs():
+        m = np.ones((P, P))
+        m[i, j] = m[j, i] = frac
+        out.append(m)
+    return out
+
+
+class FailsafeFitness(EnsembleFitness):
+    """k-failure fitness: ONE DAG scored under a stack of degradation
+    masks through the per-member mask lane of `EnsembleTorchDES`.  Reuses
+    the whole ensemble plumbing by treating each failure scenario as a
+    member whose DAG is the same object."""
+
+    def __init__(self, dag: CommDAG, scenarios: list[np.ndarray],
+                 space: TopologySpace, opts: GAOptions, objective: str,
+                 refs: np.ndarray):
+        super().__init__(DagEnsemble([dag] * len(scenarios)), space, opts,
+                         objective, refs, masks=np.stack(scenarios))
+
+
+def delta_failsafe(dag: CommDAG, opts: GAOptions | None = None,
+                   scenarios: list[np.ndarray] | None = None,
+                   num_planes: int = 4, k: int = 1,
+                   objective: str = "worst",
+                   xbar: np.ndarray | None = None) -> RobustGAResult:
+    """k-failure worst-case plan: one topology whose DES makespan is
+    minimized across a set of fabric-degradation scenarios (capacity
+    masks), scored in one genomes x masks batched DES call per
+    generation.
+
+    `scenarios` is a list of (P, P) availability masks (1 = healthy);
+    omitted, it defaults to `failure_scenarios(dag, num_planes, k)`.
+    `objective` is 'worst' (minimize the max scenario makespan) or
+    'weighted' (uniform mean).  The repair policy also calls this with a
+    single scenario -- the *current* fabric damage -- to produce a full
+    replan optimized for the degraded fabric.
+    """
+    opts = opts or GAOptions()
+    if objective not in FAILSAFE_OBJECTIVES:
+        raise ValueError(f"unknown objective {objective!r}; "
+                         f"pick from {FAILSAFE_OBJECTIVES}")
+    if scenarios is None:
+        scenarios = failure_scenarios(dag, num_planes=num_planes, k=k)
+    scenarios = [np.asarray(m, dtype=np.float64) for m in scenarios]
+    if not scenarios:
+        raise ValueError("delta_failsafe needs at least one scenario")
+    t_start = time.time()
+    rng = np.random.default_rng(opts.seed)
+    space = TopologySpace(dag, xbar)
+    refs = np.ones(len(scenarios))   # worst == max-regret w.r.t. unit refs
+    eff = "max-regret" if objective == "worst" else "weighted"
+    fit = FailsafeFitness(dag, scenarios, space, opts, eff, refs)
+    t0 = time.time()
+
+    if space.E == 0:    # no inter-pod traffic: nothing to degrade
+        x = np.zeros((space.P, space.P), dtype=np.int64)
+        ms = fit.exact_member_makespans(np.zeros(0, dtype=np.int64))
+        obj = float(fit.scalarize(ms[None])[0])
+        return RobustGAResult(
+            x=x, makespans=ms, regrets=ms / refs, refs=refs,
+            weights=np.asarray(fit.ensemble.weights), objective=objective,
+            objective_value=obj, generations=0, evaluations=1,
+            elapsed=time.time() - t_start, history=[obj],
+            feasible=bool(np.isfinite(ms).all()))
+
+    with span("ga.evolve", kind="delta_failsafe", pop=opts.pop_size,
+              edges=space.E, members=len(scenarios)):
+        best_g, _, history, gen = _evolve(space, fit, opts, rng, t0)
+    # masked makespans are certified exactly before the winner is named
+    best_g, best_ms = _rerank_members(fit, best_g, opts)
+    obj = float(fit.scalarize(best_ms[None])[0])
+    return RobustGAResult(
+        x=space.to_matrix(best_g), makespans=best_ms,
+        regrets=best_ms / refs, refs=refs,
+        weights=np.asarray(fit.ensemble.weights), objective=objective,
+        objective_value=obj, generations=gen, evaluations=fit.evaluations,
+        elapsed=time.time() - t_start, history=history,
+        feasible=bool(np.isfinite(best_ms).all()))

@@ -102,7 +102,9 @@ extern "C" int waterfill_fill_matvec(const float* w, const float* rhs,
 // filling loop of one DES event trip, for every lane of the population.
 // Replaces the Pallas kernel `repro/kernels/waterfill.py:47 fill_matvec`
 // together with the `lax.while_loop` around it in
-// `repro/core/des_jax.py:256 _maxmin`, which launches it once per round.
+// `repro/core/des_jax.py:256 _maxmin`, which launches it once per round,
+// and the vmap of both over an ensemble's members in
+// `repro/core/des_jax.py:719 EnsembleJaxDES`.
 //
 // What bounds it.  At the main path's width (megatron-462b bucketed: N =
 // 832 tasks, C = 80 constraints, E = 2,432 incidence entries, S = 48
@@ -114,10 +116,13 @@ extern "C" int waterfill_fill_matvec(const float* w, const float* rhs,
 // its latency (a few us), and the per-round path it replaces was bound by
 // one host sync, one launch and ~15 small torch ops per round.
 //
-// Design.  One block per lane; no round leaves the block.  The block
-// copies the incidence as CSR by constraint (con_ptr, ent_task, ent_w) into
-// shared memory once, with the lane's phi, active / unfrozen / hit flags,
-// alpha_c and caps, sized as dynamic shared memory from (N, C, E) (above
+// Design.  One block per lane; no round leaves the block.  A launch may
+// serve M problems at once (the members of an ensemble, each padded to one
+// (N, C, E)): lane s reads member s % M's CSR and flows, so the lanes are
+// genome-major and member-minor, and with M = 1 every lane reads the one
+// problem.  The block copies its member's incidence as CSR by constraint
+// (con_ptr, ent_task, ent_w) into shared memory once, with the lane's phi,
+// active / unfrozen / hit flags, alpha_c and caps, sized as dynamic shared memory from (N, C, E) (above
 // 48 KB after cudaFuncAttributeMaxDynamicSharedMemorySize; the wrapper
 // refuses more than the 227 KB a block may have).  The dense W of the
 // per-round kernel is 96% zeros at the main shape; the CSR reads only the
@@ -171,7 +176,7 @@ fill_maxmin_kernel(const int* __restrict__ con_ptr,
                    const float* __restrict__ caps,
                    const float* __restrict__ flows,
                    float* __restrict__ rates, int* __restrict__ rounds,
-                   int N, int C, int E) {
+                   int M, int N, int C, int E) {
     extern __shared__ __align__(16) unsigned char smem[];
     int* s_ptr = reinterpret_cast<int*>(smem);
     int* s_task = s_ptr + (C + 1);
@@ -186,8 +191,13 @@ fill_maxmin_kernel(const int* __restrict__ con_ptr,
     const int tid = threadIdx.x, nthr = blockDim.x;
     const int warp = tid / kWarp, lane = tid % kWarp, nwarps = nthr / kWarp;
     const long long s = blockIdx.x;
+    const long long m = s % M;           // the lane's member
     const unsigned char* act = active + s * N;
     const float* cap = caps + s * C;
+    con_ptr += m * (C + 1);
+    ent_task += m * E;
+    ent_w += m * E;
+    flows += m * N;
 
     // a malformed CSR would index shared memory out of bounds: a device
     // assert stops the launch (a check on the host would cost a sync)
@@ -290,10 +300,12 @@ fill_maxmin_kernel(const int* __restrict__ con_ptr,
 
 }  // namespace
 
-// rates (S, N) and rounds (S,) of S lanes: con_ptr (C + 1,) int32, ent_task
-// (E,) int32, ent_w (E,) float32 (the incidence as CSR by constraint:
-// con_ptr rising from 0 to E, every task in [0, N), else a device assert),
-// active (S, N) bool, caps (S, C) float32, flows (N,) float32; contiguous.
+// rates (S, N) and rounds (S,) of S lanes over M members (S a multiple of
+// M; lane s reads member s % M): con_ptr (M, C + 1) int32, ent_task (M, E)
+// int32, ent_w (M, E) float32 (each member's incidence as CSR by
+// constraint: con_ptr rising from 0 to E, every task in [0, N), else a
+// device assert), active (S, N) bool, caps (S, C) float32, flows (M, N)
+// float32; contiguous.
 // Launches on `stream` and returns the launch's cudaError_t (0 on success)
 // without synchronising.  A block that needs more shared memory than the
 // card lets a block opt in to is refused by cudaFuncSetAttribute (the
@@ -302,10 +314,12 @@ extern "C" int waterfill_fill_maxmin(const int* con_ptr, const int* ent_task,
                                      const float* ent_w,
                                      const unsigned char* active,
                                      const float* caps, const float* flows,
-                                     float* rates, int* rounds, int S, int N,
-                                     int C, int E, void* stream) {
+                                     float* rates, int* rounds, int S, int M,
+                                     int N, int C, int E, void* stream) {
     if (S <= 0) return static_cast<int>(cudaSuccess);
-    if (C <= 0 || N < 0 || E < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (C <= 0 || N < 0 || E < 0 || M <= 0 || S % M != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     const size_t smem = maxmin_smem_bytes(N, C, E);
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -315,6 +329,7 @@ extern "C" int waterfill_fill_maxmin(const int* con_ptr, const int* ent_task,
     }
     fill_maxmin_kernel<<<S, kMaxminThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-        con_ptr, ent_task, ent_w, active, caps, flows, rates, rounds, N, C, E);
+        con_ptr, ent_task, ent_w, active, caps, flows, rates, rounds, M, N, C,
+        E);
     return static_cast<int>(cudaGetLastError());
 }

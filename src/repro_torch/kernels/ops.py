@@ -107,10 +107,11 @@ def fill_maxmin(con_ptr: torch.Tensor, ent_task: torch.Tensor,
                 flows: torch.Tensor, *, backend: str = "auto"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted max-min fair rates by progressive filling, every round of
-    one DES event trip: the CSR incidence (con_ptr, ent_task, ent_w),
-    active (S, N), caps (S, C) and flows (N,) -> (rates (S, N), rounds
-    (S,) int32).  The `repro_torch.core.des_torch` rate step, once per
-    event trip."""
+    one DES event trip: the CSR incidence (con_ptr, ent_task, ent_w) and
+    flows of M members on a leading member axis (M = 1 for one problem),
+    active (S, N) and caps (S, C), lane s reading member s % M -> (rates
+    (S, N), rounds (S,) int32).  The `repro_torch.core.des_torch` rate
+    step, once per event trip."""
     if _pick(backend, active) == "cuda":
         return _waterfill.fill_maxmin(con_ptr, ent_task, ent_w, active, caps,
                                       flows)

@@ -139,12 +139,20 @@ def fill_round_ref(w: torch.Tensor, level: torch.Tensor,
     return out[..., 0], out[..., 1]
 
 
+def _lanes(s: int, m: int) -> int:
+    """The genomes of S lanes over M members (lane s reads member s % M)."""
+    if m < 1 or s % m:
+        raise ValueError(f"{s} lanes are not a multiple of {m} members")
+    return s // m
+
+
 def csr_con_id(con_ptr: torch.Tensor) -> torch.Tensor:
-    """The constraint of each CSR entry, int64 (E,)."""
-    c = con_ptr.shape[0] - 1
-    return torch.repeat_interleave(
-        torch.arange(c, device=con_ptr.device),
-        (con_ptr[1:] - con_ptr[:-1]).long())
+    """The constraint of each CSR entry, int64: (M, E) for M members'
+    con_ptr (M, C+1)."""
+    c = con_ptr.shape[1] - 1
+    ids = torch.arange(c, device=con_ptr.device)
+    return torch.stack([torch.repeat_interleave(ids, (p[1:] - p[:-1]).long())
+                        for p in con_ptr])
 
 
 WARP = 32
@@ -159,30 +167,37 @@ def csr_warp_sums(con_ptr: torch.Tensor, ent_task: torch.Tensor,
     to lane k % 32, each lane adds its entries' products in row order,
     and lane 0 gathers the 32 partial sums by a shuffle-down tree (16, 8,
     4, 2, 1).  Every product and sum is rounded once (no FMA), so the
-    result is the kernel's to the bit.  Returns ``reduce(level,
-    unfrozen)`` for (S, N) float32 operands."""
-    c, dev = con_ptr.shape[0] - 1, con_ptr.device
-    counts = (con_ptr[1:] - con_ptr[:-1]).long()
+    result is the kernel's to the bit.  The incidence is M members',
+    (M, C+1), (M, E), (M, E).  Returns ``reduce(level, unfrozen)`` for
+    (S, N) float32 operands, S a multiple of M, lane s reading member
+    s % M."""
+    (m, c1), dev = con_ptr.shape, con_ptr.device
+    c = c1 - 1
+    counts = (con_ptr[:, 1:] - con_ptr[:, :-1]).long()          # (M, C)
     steps = max(1, -(-int(counts.max()) // WARP)) if c else 1
     k = torch.arange(steps * WARP, device=dev)
-    valid = k < counts[:, None]                              # (C, K)
-    ent = torch.where(valid, con_ptr[:-1].long()[:, None] + k, 0)
+    valid = k < counts[..., None]                               # (M, C, K)
+    ent = torch.where(valid, con_ptr[:, :-1].long()[..., None] + k, 0)
     # an empty incidence gathers from one zero entry, masked out
-    pad = torch.zeros(1, dtype=torch.float32, device=dev)
-    w = torch.cat([ent_w.to(torch.float32), pad])[ent]
-    task = torch.cat([ent_task.long(), pad.long()])[ent]
+    pad = torch.zeros((m, 1), dtype=torch.float32, device=dev)
+    w = torch.cat([ent_w.to(torch.float32), pad], 1).gather(
+        1, ent.view(m, -1))                                     # (M, C*K)
+    task = torch.cat([ent_task.long(), pad.long()], 1).gather(
+        1, ent.view(m, -1))
+    ok = valid.view(m, c, steps, WARP)
 
     def one(x: torch.Tensor) -> torch.Tensor:
-        prod = (w * x[:, task]).view(x.shape[0], c, steps, WARP)
-        ok = valid.view(c, steps, WARP)
-        acc = torch.zeros((x.shape[0], c, WARP), dtype=torch.float32,
+        pop = _lanes(x.shape[0], m)
+        xs = torch.gather(x.view(pop, m, -1), 2, task.expand(pop, m, -1))
+        prod = (w * xs).view(pop, m, c, steps, WARP)
+        acc = torch.zeros((pop, m, c, WARP), dtype=torch.float32,
                           device=x.device)
         for j in range(steps):
-            acc = torch.where(ok[:, j], acc + prod[:, :, j], acc)
+            acc = torch.where(ok[:, :, j], acc + prod[:, :, :, j], acc)
         for off in (16, 8, 4, 2, 1):
             acc = torch.cat([acc[..., :off] + acc[..., off:2 * off],
                              acc[..., off:]], -1)
-        return acc[..., 0]
+        return acc[..., 0].reshape(pop * m, c)
 
     return lambda level, unfrozen: (one(level), one(unfrozen))
 
@@ -199,17 +214,23 @@ def progressive_filling(reduce: Callable[[torch.Tensor, torch.Tensor],
     ``reduce(level, unfrozen)`` gives one round's per-constraint ``(used,
     denom)`` (S, C) from ``level = phi * active`` and ``unfrozen`` as
     float32 (S, N); ``con_id``/``con_task`` are the incidence entries,
-    through which a saturated constraint freezes its tasks.  A lane whose
-    unfrozen set is empty has stopped: every update is masked with
+    through which a saturated constraint freezes its tasks, and ``flows``
+    the tasks' flow counts, (M, E), (M, E) and (M, N) for M members, lane
+    s reading member s % M.  A lane
+    whose unfrozen set is empty has stopped: every update is masked with
     `unfrozen`, so it stays as it was while the other lanes go on.
     Returns ``rates = flows * phi * active`` (S, N) and the rounds each
     lane ran (S,) int32; the host reads one flag per round."""
     S, n, C = active.shape[0], active.shape[1], caps.shape[1]
+    m = con_id.shape[0]
+    pop = _lanes(S, m)
     f32 = torch.float32
     active_f = active.to(f32)
     phi = torch.zeros((S, n), dtype=f32, device=active.device)
     unfrozen = active.clone()
     rounds = torch.zeros(S, dtype=torch.int32, device=active.device)
+    con_id_x = con_id.expand(pop, m, -1)
+    con_task_x = con_task.expand(pop, m, -1)
     for _ in range(C + 1):
         lanes_on = unfrozen.any(1)
         if not bool(lanes_on.any()):          # one host sync per round
@@ -224,10 +245,12 @@ def progressive_filling(reduce: Callable[[torch.Tensor, torch.Tensor],
         # (1 + 1e-9) rounds to 1 in float32, as in the reference
         sat = torch.isfinite(alpha_c) & (
             alpha_c <= (alpha * (1 + 1e-9) + 1e-18)[:, None])
-        hits = torch.zeros((S, n), dtype=f32, device=active.device)
-        hits.index_add_(1, con_task, sat[:, con_id].to(f32))
-        unfrozen = unfrozen & (hits == 0)
-    return flows * phi * active_f, rounds
+        hits = torch.zeros((pop, m, n), dtype=f32, device=active.device)
+        hits.scatter_add_(2, con_task_x, torch.gather(
+            sat.view(pop, m, C), 2, con_id_x).to(f32))
+        unfrozen = unfrozen & (hits.view(S, n) == 0)
+    rates = flows * phi.view(pop, m, n) * active_f.view(pop, m, n)
+    return rates.view(S, n), rounds
 
 
 def fill_maxmin_ref(con_ptr: torch.Tensor, ent_task: torch.Tensor,
@@ -235,10 +258,12 @@ def fill_maxmin_ref(con_ptr: torch.Tensor, ent_task: torch.Tensor,
                     caps: torch.Tensor, flows: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted max-min fair rates by progressive filling for the CSR
-    incidence (con_ptr (C+1,), ent_task (E,), ent_w (E,)), one host-driven
-    round at a time with `csr_warp_sums` for each round's reduction, so
-    every value is the fused kernel's to the bit.  active (S, N) bool,
-    caps (S, C), flows (N,) -> (rates (S, N), rounds (S,) int32)."""
+    incidence, one host-driven round at a time with `csr_warp_sums` for
+    each round's reduction, so every value is the fused kernel's to the
+    bit.  M members' con_ptr (M, C+1), ent_task (M, E), ent_w (M, E) and
+    flows (M, N) (M = 1 for one problem); active (S, N) bool and caps
+    (S, C), S a multiple of M, lane s reading member s % M -> (rates
+    (S, N), rounds (S,) int32)."""
     return progressive_filling(
         csr_warp_sums(con_ptr, ent_task, ent_w), csr_con_id(con_ptr),
         ent_task.long(), active, caps, flows)

@@ -6,7 +6,8 @@ matrix ``w`` (C, N) shared by every lane of a batch of right-hand sides
 one progressive-filling round's per-constraint ``(used, denom)`` from the
 lanes' ``level`` and ``unfrozen`` vectors.  `fill_maxmin` runs every
 progressive-filling round of one DES event trip, for every lane, in one
-launch, with the incidence as CSR in shared memory.  Both replace the
+launch, with the incidence as CSR in shared memory; one launch may serve
+the members of an ensemble, lane by lane.  Both replace the
 Pallas kernel `repro/kernels/waterfill.py:47 fill_matvec` (`fill_maxmin`
 with the `while_loop` of `repro/core/des_jax.py:256 _maxmin` around it);
 the source, with what bounds each on the card, is `csrc/waterfill.cu`.
@@ -43,7 +44,7 @@ def _kernel():
 def _maxmin_kernel():
     return _build.function(
         "waterfill", "waterfill_fill_maxmin",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def maxmin_smem_bytes(n: int, c: int, e: int) -> int:
@@ -114,11 +115,13 @@ def fill_maxmin(con_ptr: torch.Tensor, ent_task: torch.Tensor,
     """Weighted max-min fair rates of S lanes on the kernel: every
     progressive-filling round in one launch.
 
-    con_ptr (C+1,) int32, ent_task (E,) int32 and ent_w (E,) float32 are
-    the incidence as CSR by constraint (con_ptr rising from 0 to E, every
-    ``ent_task`` in [0, N): the kernel checks both with a device assert,
-    which fails the launch at the next synchronisation); active (S, N)
-    bool, caps (S, C) float32, flows (N,) float32.  Returns
+    con_ptr (M, C+1) int32, ent_task (M, E) int32 and ent_w (M, E) float32
+    are the incidence of M problems as CSR by constraint (each con_ptr row
+    rising from 0 to E, every ``ent_task`` in [0, N): the kernel checks
+    both with a device assert, which fails the launch at the next
+    synchronisation), flows (M, N) float32; one problem is M = 1.  active
+    (S, N) bool and caps (S, C) float32 with S a multiple of M: lane s
+    reads member s % M (genome-major, member-minor lanes).  Returns
     ``rates`` (S, N) float32, ``flows * phi * active``, and ``rounds``
     (S,) int32, the rounds each lane ran.  Raises on anything the kernel
     does not take, a problem too large for one block's shared memory
@@ -132,19 +135,21 @@ def fill_maxmin(con_ptr: torch.Tensor, ent_task: torch.Tensor,
                            ("caps", caps, torch.float32),
                            ("flows", flows, torch.float32)):
         _check(name, t, dev, dtype)
-    if active.dim() != 2 or caps.dim() != 2:
-        raise ValueError(f"waterfill kernel: needs active (S, N) and caps "
-                         f"(S, C), got {tuple(active.shape)} and "
-                         f"{tuple(caps.shape)}")
-    (s, n), (s2, c), e = active.shape, caps.shape, ent_task.numel()
-    if s2 != s or c < 1 or con_ptr.shape != (c + 1,) \
-            or ent_task.shape != (e,) or ent_w.shape != (e,) \
-            or flows.shape != (n,):
+    if active.dim() != 2 or caps.dim() != 2 or con_ptr.dim() != 2:
+        raise ValueError(f"waterfill kernel: needs active (S, N), caps "
+                         f"(S, C) and con_ptr (M, C+1), got "
+                         f"{tuple(active.shape)}, {tuple(caps.shape)} and "
+                         f"{tuple(con_ptr.shape)}")
+    m = con_ptr.shape[0]
+    (s, n), (s2, c), e = active.shape, caps.shape, ent_task.shape[-1]
+    if s2 != s or c < 1 or m < 1 or con_ptr.shape != (m, c + 1) \
+            or ent_task.shape != (m, e) or ent_w.shape != (m, e) \
+            or flows.shape != (m, n) or s % m:
         raise ValueError(
             f"waterfill kernel: shapes disagree: active {tuple(active.shape)}"
             f", caps {tuple(caps.shape)}, con_ptr {tuple(con_ptr.shape)}, "
             f"ent_task {tuple(ent_task.shape)}, ent_w {tuple(ent_w.shape)}, "
-            f"flows {tuple(flows.shape)}")
+            f"flows {tuple(flows.shape)} (lanes a multiple of the members)")
     smem = maxmin_smem_bytes(n, c, e)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"waterfill kernel: N={n}, C={c}, E={e} need "
@@ -158,7 +163,7 @@ def fill_maxmin(con_ptr: torch.Tensor, ent_task: torch.Tensor,
             err = _maxmin_kernel()(
                 con_ptr.data_ptr(), ent_task.data_ptr(), ent_w.data_ptr(),
                 active.data_ptr(), caps.data_ptr(), flows.data_ptr(),
-                rates.data_ptr(), rounds.data_ptr(), s, n, c, e, stream)
+                rates.data_ptr(), rounds.data_ptr(), s, m, n, c, e, stream)
         if err != 0:
             raise RuntimeError(f"waterfill fill_maxmin launch failed: "
                                f"cudaError {err}")

@@ -14,7 +14,11 @@ tclosure and maxplus, which are bit-equal to their plain versions (a
 boolean product; a max of float32 sums, each rounded once); rel 5e-5 DES
 against the numpy oracle (as in tests/test_des_jax.py); atol 1e-5 x max
 EST for longest paths (float32) against Alg. 4 (float64); rel 1e-5
-between the fused and the per-round DES paths (both float32)."""
+between the fused and the per-round DES paths (both float32).  The
+member-axis filling launch is bit-equal to its plain version and, member
+by member, to single-problem launches (each block reads its lane's
+member, nothing else changes); the ensemble engine on the card is
+bit-equal to its plain path and within rel 5e-5 of the numpy DES."""
 import dataclasses
 import os
 import subprocess
@@ -29,7 +33,7 @@ from conftest import gpt7b_job
 from repro_torch.configs import PAPER_WORKLOADS, make_job
 from repro_torch.core.dag import VIRTUAL
 from repro_torch.core.des import DESProblem, simulate
-from repro_torch.core.des_torch import DESOptions, TorchDES
+from repro_torch.core.des_torch import DESOptions, EnsembleTorchDES, TorchDES
 from repro_torch.core.ga import GAOptions, delta_fast
 from repro_torch.core.pruning import (cal_task_time_windows, dep_weights,
                                       estimate_t_up)
@@ -297,7 +301,8 @@ def test_longest_paths_row_virtual_is_est_on_card(cuda, dag3):
 
 def maxmin_instance(rng, s, n, c, e, density, dev):
     """A random CSR incidence in which every task sits in a constraint
-    (when E >= N), with S lanes of active sets and capacities."""
+    (when E >= N), with a member axis of 1, and S lanes of active sets
+    and capacities."""
     con = np.concatenate([np.arange(min(n, e)) % c,
                           rng.integers(0, c, max(e - n, 0))])
     task = np.concatenate([np.arange(min(n, e)),
@@ -305,11 +310,11 @@ def maxmin_instance(rng, s, n, c, e, density, dev):
     order = np.argsort(con, kind="stable")
     con_ptr = np.zeros(c + 1, dtype=np.int32)
     con_ptr[1:] = np.cumsum(np.bincount(con, minlength=c))
-    tensors = (con_ptr, task[order].astype(np.int32),
-               rng.uniform(0.1, 3.0, e).astype(np.float32),
+    tensors = (con_ptr[None], task[order].astype(np.int32)[None],
+               rng.uniform(0.1, 3.0, (1, e)).astype(np.float32),
                rng.random((s, n)) < density,
                rng.uniform(0.1, 5.0, (s, c)).astype(np.float32),
-               rng.uniform(1.0, 4.0, n).astype(np.float32))
+               rng.uniform(1.0, 4.0, (1, n)).astype(np.float32))
     return [torch.from_numpy(np.ascontiguousarray(t)).to(dev)
             for t in tensors]
 
@@ -334,10 +339,10 @@ def test_fill_maxmin_edge_lanes(cuda):
     """Empty and stopped lanes run 0 rounds; a task in no constraint runs
     its lane to the cap of C + 1 rounds with an infinite rate; ideal
     (infinite) capacities never saturate."""
-    con_ptr = torch.tensor([0, 2, 3], dtype=torch.int32, device=cuda)
-    ent_task = torch.tensor([0, 1, 1], dtype=torch.int32, device=cuda)
-    ent_w = torch.tensor([1.0, 2.0, 1.0], device=cuda)
-    flows = torch.tensor([1.0, 2.0, 3.0], device=cuda)
+    con_ptr = torch.tensor([[0, 2, 3]], dtype=torch.int32, device=cuda)
+    ent_task = torch.tensor([[0, 1, 1]], dtype=torch.int32, device=cuda)
+    ent_w = torch.tensor([[1.0, 2.0, 1.0]], device=cuda)
+    flows = torch.tensor([[1.0, 2.0, 3.0]], device=cuda)
     active = torch.tensor([[False, False, False], [True, True, False],
                            [True, False, True], [False, True, False]],
                           device=cuda)
@@ -365,7 +370,7 @@ def test_fill_maxmin_rejects_what_it_does_not_take(cuda):
         waterfill.fill_maxmin(*args[:4], args[4].t().contiguous().t(),
                               args[5])
     with pytest.raises(ValueError, match="shapes disagree"):
-        waterfill.fill_maxmin(*args[:5], args[5][:-1].contiguous())
+        waterfill.fill_maxmin(*args[:5], args[5][:, :-1].contiguous())
     big = maxmin_instance(rng, 1, 832, 80, 30000, 0.5, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         waterfill.fill_maxmin(*big)
@@ -379,10 +384,11 @@ def test_fill_maxmin_asserts_on_a_malformed_csr(cuda):
         "from repro_torch.kernels import waterfill\n"
         "i32 = dict(dtype=torch.int32, device='cuda')\n"
         "rates, _ = waterfill.fill_maxmin(\n"
-        "    torch.tensor([0, 2], **i32), torch.tensor([0, 5], **i32),\n"
-        "    torch.ones(2, device='cuda'),\n"
+        "    torch.tensor([[0, 2]], **i32), torch.tensor([[0, 5]], **i32),\n"
+        "    torch.ones((1, 2), device='cuda'),\n"
         "    torch.ones((1, 3), dtype=torch.bool, device='cuda'),\n"
-        "    torch.ones((1, 1), device='cuda'), torch.ones(3, device='cuda'))\n"
+        "    torch.ones((1, 1), device='cuda'),\n"
+        "    torch.ones((1, 3), device='cuda'))\n"
         "torch.cuda.synchronize()\n")
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
@@ -455,3 +461,108 @@ def test_fused_engine_matches_numpy_and_the_round_path(cuda, dag3):
         r = simulate(prob, x)
         assert bool(feas_f[i]) == r.feasible
         assert ms_f[i] == pytest.approx(r.makespan, rel=DES_RTOL)
+
+
+def _member_instances(rng, members, lanes, n, c, e, density, dev):
+    """M distinct random CSRs of one (N, C, E), stacked on a member axis,
+    with S = members x lanes lanes of active sets and capacities."""
+    parts = [maxmin_instance(rng, lanes * members, n, c, e, density, dev)
+             for _ in range(members)]
+    csr = [torch.cat([p[i] for p in parts]) for i in (0, 1, 2, 5)]
+    return [*csr[:3], parts[0][3], parts[0][4], csr[3]]
+
+
+@pytest.mark.parametrize("members", [1, 2, 3])
+@pytest.mark.parametrize("lanes", [1, 5, 48])
+def test_fill_maxmin_members_match_plain(cuda, members, lanes):
+    """Lane s reads member s % M: the launch is bit-equal to its plain
+    version with equal rounds, and each member's lanes to a launch of
+    that member alone (the M = 1 call of one CSR)."""
+    rng = np.random.default_rng(100 * members + lanes)
+    con_ptr, ent_task, ent_w, active, caps, flows = _member_instances(
+        rng, members, lanes, 257, 40, 600, 0.6, cuda)
+    args = (con_ptr, ent_task, ent_w, active, caps, flows)
+    before = waterfill.maxmin_launches
+    rates, rounds = ops.fill_maxmin(*args)
+    torch.cuda.synchronize()
+    assert waterfill.maxmin_launches == before + 1
+    want, want_rounds = fill_maxmin_ref(*args)
+    assert torch.equal(rates, want) and torch.equal(rounds, want_rounds)
+    for m in range(members):
+        one, one_rounds = ops.fill_maxmin(
+            con_ptr[m:m + 1], ent_task[m:m + 1], ent_w[m:m + 1],
+            active[m::members].contiguous(), caps[m::members].contiguous(),
+            flows[m:m + 1])
+        assert torch.equal(one, rates[m::members])
+        assert torch.equal(one_rounds, rounds[m::members])
+
+
+def test_fill_maxmin_one_member_axis_is_the_single_call(cuda):
+    """One problem is the M = 1 launch: bit-equal to its plain version and
+    to the same problem read as both members of an M = 2 launch."""
+    rng = np.random.default_rng(11)
+    args = maxmin_instance(rng, 48, 832, 80, 2432, 0.2, cuda)
+    rates, rounds = ops.fill_maxmin(*args)
+    want, want_rounds = fill_maxmin_ref(*args)
+    assert torch.equal(rates, want) and torch.equal(rounds, want_rounds)
+    twice = [t.expand(2, -1).contiguous() for t in args[:3]] \
+        + [args[3], args[4], args[5].expand(2, -1).contiguous()]
+    again, again_rounds = ops.fill_maxmin(*twice)
+    assert torch.equal(again, rates) and torch.equal(again_rounds, rounds)
+
+
+def test_fill_maxmin_rejects_lanes_not_a_multiple_of_members(cuda):
+    rng = np.random.default_rng(12)
+    args = _member_instances(rng, 2, 3, 16, 4, 20, 0.5, cuda)
+    odd = [*args[:3], args[3][:5].contiguous(), args[4][:5].contiguous(),
+           args[5]]
+    before = waterfill.maxmin_launches
+    with pytest.raises(ValueError, match="multiple of the members"):
+        waterfill.fill_maxmin(*odd)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        waterfill.fill_maxmin(*args[:5], args[5][:1].contiguous())
+    with pytest.raises(ValueError, match="con_ptr \\(M, C\\+1\\)"):
+        waterfill.fill_maxmin(args[0][0], *args[1:])
+    assert waterfill.maxmin_launches == before
+
+
+def test_ensemble_engine_on_card(cuda, dag3):
+    """EnsembleTorchDES on the card: one fill_maxmin launch per trip for
+    all genomes x members lanes, bit-equal to its plain path, within rel
+    5e-5 of the numpy DES under per-member masks, and its one-member case
+    bit-equal to TorchDES."""
+    job = gpt7b_job(2, micro_tokens=16384)
+    dag_b = build_comm_dag(JobSpec(**{f.name: getattr(job, f.name)
+                                      for f in dataclasses.fields(job)
+                                      if f.init}))
+    probs = [DESProblem(dag3), DESProblem(dag_b)]
+    fused = EnsembleTorchDES(probs)
+    plain = EnsembleTorchDES(probs, options=DESOptions(backend="ref"))
+    assert fused.backend == "cuda" and fused.M == 2
+    rng = np.random.default_rng(6)
+    P = dag3.cluster.num_pods
+    pairs = sorted(set(dag3.undirected_pairs()) | set(dag_b.undirected_pairs()))
+    eu = np.array([i for i, _ in pairs])
+    ev = np.array([j for _, j in pairs])
+    genomes = rng.integers(1, 4, (5, len(pairs)))
+    masks = np.stack([np.ones((P, P)), np.full((P, P), 0.75)])
+    c0 = _counts()
+    ms_f, feas_f = fused.ensemble_genome_makespan(genomes, eu, ev, masks)
+    c1 = _counts()
+    assert c1[1] - c0[1] == c1[2] - c0[2] > 0      # one launch per trip
+    ms_p, feas_p = plain.ensemble_genome_makespan(genomes, eu, ev, masks)
+    np.testing.assert_array_equal(ms_f, ms_p)
+    np.testing.assert_array_equal(feas_f, feas_p)
+    for g in range(len(genomes)):
+        x = np.zeros((P, P), dtype=np.int64)
+        x[eu, ev] = x[ev, eu] = genomes[g]
+        for m, prob in enumerate(probs):
+            r = simulate(prob, x * masks[m])
+            assert bool(feas_f[g, m]) == r.feasible
+            assert ms_f[g, m] == pytest.approx(r.makespan, rel=DES_RTOL)
+    single = EnsembleTorchDES(probs[:1]).ensemble_genome_makespan(
+        genomes, eu, ev)
+    ms_t, feas_t = TorchDES(probs[0]).batch_genome_makespan(genomes, eu, ev)
+    np.testing.assert_array_equal(single[0][:, 0], ms_t)
+    np.testing.assert_array_equal(single[1][:, 0], feas_t)
+

@@ -164,16 +164,17 @@ def maxmin_numpy_ref(n, C, con_task, con_id, con_w, flows, active, caps):
 
 
 def _synthetic_arrays(n, C, con_task, con_id, con_w, flows) -> DESArrays:
-    """DESArrays carrying only the fields `_maxmin` consumes."""
-    z = torch.zeros(1, dtype=torch.int64)
+    """One-member DESArrays carrying only the fields `_maxmin` consumes."""
+    z = torch.zeros((1, 1), dtype=torch.int64)
     return DESArrays(
-        volume=torch.ones(n), flows=torch.tensor(flows, dtype=torch.float32),
-        dep_pre=z, dep_succ=z, dep_delta=torch.zeros(1),
-        indegree=torch.zeros(n, dtype=torch.int32),
-        con_task=torch.as_tensor(con_task, dtype=torch.int64),
-        con_id=torch.as_tensor(con_id, dtype=torch.int64),
-        con_w=torch.tensor(con_w, dtype=torch.float32), link_pair_a=z,
-        link_pair_b=z, task_valid=torch.ones(n, dtype=torch.bool),
+        volume=torch.ones((1, n)),
+        flows=torch.tensor(flows, dtype=torch.float32)[None],
+        dep_pre=z, dep_succ=z, dep_delta=torch.zeros((1, 1)),
+        indegree=torch.zeros((1, n), dtype=torch.int32),
+        con_task=torch.as_tensor(con_task, dtype=torch.int64)[None],
+        con_id=torch.as_tensor(con_id, dtype=torch.int64)[None],
+        con_w=torch.tensor(con_w, dtype=torch.float32)[None], link_pair_a=z,
+        link_pair_b=z, task_valid=torch.ones((1, n), dtype=torch.bool),
         num_cons=C, num_link_cons=0, n=n)
 
 
@@ -297,7 +298,8 @@ def test_matches_jax_des_on_reference_arrays(dag3):
     ref_prob = jax_des_np.DESProblem(jax_build_comm_dag(gpt7b_job(3)))
     jd = des_jax.JaxDES(ref_prob, options=des_jax.DESOptions(backend="ref"))
     arrays = des_arrays_from_numpy(
-        des_jax._problem_fields(ref_prob, jd.pad), jd.pad, "cpu")
+        {k: v[None] for k, v in des_jax._problem_fields(
+            ref_prob, jd.pad).items()}, jd.pad, "cpu")
     prob = DESProblem(dag3)
     td = TorchDES(prob, options=CPU, arrays=arrays)
     assert td.pad == PadSpec(*jd.pad)
@@ -318,12 +320,15 @@ def test_matches_jax_des_on_reference_arrays(dag3):
 def test_convert_rejects_malformed_fields(dag2):
     prob = DESProblem(dag2)
     pad = PadSpec.exact(prob)
-    fields = _problem_fields(prob, pad)
+    fields = {k: v[None] for k, v in _problem_fields(prob, pad).items()}
     with pytest.raises(ValueError, match="differ"):
         des_arrays_from_numpy({k: v for k, v in fields.items()
                                if k != "volume"}, pad, "cpu")
     with pytest.raises(ValueError, match="shape"):
         des_arrays_from_numpy(fields, pad._replace(n=pad.n + 1), "cpu")
+    with pytest.raises(ValueError, match="member axis"):
+        des_arrays_from_numpy({k: v[0] for k, v in fields.items()}, pad,
+                              "cpu")
     a = des_arrays_from_numpy(fields, pad, "cpu")
     assert a.volume.dtype == torch.float32 and a.con_id.dtype == torch.int64
     assert topology_from_numpy(np.eye(2, dtype=np.int32), "cpu").dtype \
@@ -331,6 +336,7 @@ def test_convert_rejects_malformed_fields(dag2):
     assert jnp.asarray(fields["volume"]).dtype == jnp.float32
     np.testing.assert_array_equal(
         a.volume.numpy(), np.asarray(jnp.asarray(fields["volume"])))
+    assert a.volume.shape == (1, pad.n)
 
 
 # ----------------------------------------------------------- device rules

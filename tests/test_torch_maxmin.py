@@ -108,7 +108,8 @@ class Case:
         fields = des_jax._problem_fields(prob, pad)
         self.pad, self.fields, self.real_e = pad, fields, len(prob.con_task)
         self.jarr = des_jax.DESArrays.from_problem(prob, pad)
-        self.arrays = des_arrays_from_numpy(fields, pad, "cpu")
+        self.arrays = des_arrays_from_numpy(
+            {k: v[None] for k, v in fields.items()}, pad, "cpu")
         self.csr = _incidence_csr(self.arrays)
         rng = np.random.default_rng(seed)
         real = np.zeros(pad.n, dtype=bool)
@@ -184,23 +185,23 @@ def test_csr_matches_dense_incidence(cases, name):
     by constraint, and gives the same dense matrix as `_dense_incidence`."""
     case = _case(cases, name)
     a = case.arrays
-    con_ptr, ent_task, ent_w = case.csr
-    E, C = a.con_task.numel(), a.num_cons
+    E, C = a.con_task.shape[1], a.num_cons
+    assert case.csr[0].shape == (1, C + 1)
+    assert case.csr[1].shape == case.csr[2].shape == (1, E)
+    con_ptr, ent_task, ent_w = (t[0] for t in case.csr)
     assert con_ptr.dtype == ent_task.dtype == torch.int32
     assert ent_w.dtype == torch.float32
-    assert con_ptr.shape == (C + 1,) and ent_task.shape == ent_w.shape \
-        == (E,)
     assert int(con_ptr[0]) == 0 and int(con_ptr[-1]) == E
     assert (con_ptr[1:] >= con_ptr[:-1]).all()
+    cid = csr_con_id(case.csr[0])[0]
     dense = torch.zeros((C, a.n)).index_put_(
-        (csr_con_id(con_ptr), ent_task.long()), ent_w, accumulate=True)
+        (cid, ent_task.long()), ent_w, accumulate=True)
     torch.testing.assert_close(dense, _dense_incidence(a), rtol=0, atol=0)
     # each constraint keeps its entries in their order
-    cid = csr_con_id(con_ptr)
     for c in range(C):
-        keep = a.con_id == c
-        assert torch.equal(ent_task[cid == c].long(), a.con_task[keep])
-        assert torch.equal(ent_w[cid == c], a.con_w[keep])
+        keep = a.con_id[0] == c
+        assert torch.equal(ent_task[cid == c].long(), a.con_task[0][keep])
+        assert torch.equal(ent_w[cid == c], a.con_w[0][keep])
     # the ghosts (task 0, constraint 0, weight 0) close constraint 0's row
     n_ghost = case.pad.e - case.real_e
     assert n_ghost > 0
@@ -228,9 +229,9 @@ def test_csr_warp_sums_follow_the_kernel_order():
     ent_task = rng.integers(0, n, E).astype(np.int32)
     ent_w = rng.uniform(0.1, 3.0, E).astype(np.float32)
     x = rng.uniform(0.0, 2.0, (3, n)).astype(np.float32)
-    used, denom = csr_warp_sums(torch.from_numpy(con_ptr),
-                                torch.from_numpy(ent_task),
-                                torch.from_numpy(ent_w))(
+    used, denom = csr_warp_sums(torch.from_numpy(con_ptr)[None],
+                                torch.from_numpy(ent_task)[None],
+                                torch.from_numpy(ent_w)[None])(
         torch.from_numpy(x), torch.from_numpy(x[::-1].copy()))
     f32 = np.float32
     for s in range(3):
@@ -292,10 +293,10 @@ def test_edge_cases_empty_stopped_and_unconstrained_lanes():
     """An empty active set runs 0 rounds; a lane masked out (not running)
     likewise; a lane whose unfrozen task touches no constraint runs to
     the cap of C + 1 rounds with an infinite rate, on both paths."""
-    con_ptr = torch.tensor([0, 2, 3], dtype=torch.int32)
-    ent_task = torch.tensor([0, 1, 1], dtype=torch.int32)
-    ent_w = torch.tensor([1.0, 2.0, 1.0])
-    flows = torch.tensor([1.0, 2.0, 3.0])
+    con_ptr = torch.tensor([[0, 2, 3]], dtype=torch.int32)
+    ent_task = torch.tensor([[0, 1, 1]], dtype=torch.int32)
+    ent_w = torch.tensor([[1.0, 2.0, 1.0]])
+    flows = torch.tensor([[1.0, 2.0, 3.0]])
     active = torch.tensor([[False, False, False],
                            [True, True, False],
                            [True, False, True]])
@@ -307,16 +308,17 @@ def test_edge_cases_empty_stopped_and_unconstrained_lanes():
     assert rates[:2].eq(0).all()
     assert rates[2, 0] == pytest.approx(1.0) and rates[2, 1] == 0
     assert rates[2, 2] == np.inf
-    a = DESArrays(volume=torch.ones(3), flows=flows,
-                  dep_pre=torch.zeros(1, dtype=torch.int64),
-                  dep_succ=torch.zeros(1, dtype=torch.int64),
-                  dep_delta=torch.zeros(1), indegree=torch.zeros(
-                      3, dtype=torch.int32),
+    a = DESArrays(volume=torch.ones((1, 3)), flows=flows,
+                  dep_pre=torch.zeros((1, 1), dtype=torch.int64),
+                  dep_succ=torch.zeros((1, 1), dtype=torch.int64),
+                  dep_delta=torch.zeros((1, 1)), indegree=torch.zeros(
+                      (1, 3), dtype=torch.int32),
                   con_task=ent_task.long(), con_id=csr_con_id(con_ptr),
-                  con_w=ent_w, link_pair_a=torch.zeros(1, dtype=torch.int64),
-                  link_pair_b=torch.zeros(1, dtype=torch.int64),
-                  task_valid=torch.ones(3, dtype=torch.bool), num_cons=2,
-                  num_link_cons=0, n=3)
+                  con_w=ent_w,
+                  link_pair_a=torch.zeros((1, 1), dtype=torch.int64),
+                  link_pair_b=torch.zeros((1, 1), dtype=torch.int64),
+                  task_valid=torch.ones((1, 3), dtype=torch.bool),
+                  num_cons=2, num_link_cons=0, n=3)
     s_rates, s_rounds = _segment_rounds(a, active & run[:, None], caps)
     assert torch.equal(s_rounds, rounds)
     assert torch.equal(s_rates, rates)
@@ -373,20 +375,18 @@ def csr_instances(draw):
 def test_property_fill_maxmin_ref_matches_reference(instance):
     n, C, con_task, con_id, con_w, flows, active, caps = instance
     E = len(con_id)
-    a = DESArrays(volume=torch.ones(n), flows=torch.from_numpy(flows),
-                  dep_pre=torch.zeros(1, dtype=torch.int64),
-                  dep_succ=torch.zeros(1, dtype=torch.int64),
-                  dep_delta=torch.zeros(1),
-                  indegree=torch.zeros(n, dtype=torch.int32),
-                  con_task=torch.from_numpy(con_task).long(),
-                  con_id=torch.from_numpy(con_id).long(),
-                  con_w=torch.from_numpy(con_w), link_pair_a=torch.zeros(
-                      1, dtype=torch.int64),
-                  link_pair_b=torch.zeros(1, dtype=torch.int64),
-                  task_valid=torch.ones(n, dtype=torch.bool), num_cons=C,
-                  num_link_cons=0, n=n)
+    z = torch.zeros((1, 1), dtype=torch.int64)
+    a = DESArrays(volume=torch.ones((1, n)),
+                  flows=torch.from_numpy(flows)[None], dep_pre=z,
+                  dep_succ=z, dep_delta=torch.zeros((1, 1)),
+                  indegree=torch.zeros((1, n), dtype=torch.int32),
+                  con_task=torch.from_numpy(con_task).long()[None],
+                  con_id=torch.from_numpy(con_id).long()[None],
+                  con_w=torch.from_numpy(con_w)[None], link_pair_a=z,
+                  link_pair_b=z, task_valid=torch.ones((1, n), dtype=bool),
+                  num_cons=C, num_link_cons=0, n=n)
     csr = _incidence_csr(a)
-    assert int(csr[0][-1]) == E
+    assert int(csr[0][0, -1]) == E
     rates, rounds = fill_maxmin_ref(*csr, torch.from_numpy(active),
                                     torch.from_numpy(caps), a.flows)
     z = jnp.zeros(1, dtype=jnp.int32)

@@ -19,7 +19,8 @@ from conftest import gpt7b_job
 from repro.core import ga as jax_ga
 from repro.core.des_jax import DESOptions as JaxDESOptions
 from repro.core.schedule import build_comm_dag as jax_build_comm_dag
-from repro_torch.core.api import METHODS, PlanRequest, compare, plan
+from repro_torch.core.api import (METHODS, ROBUST_METHODS, FailureModel,
+                                  PlanRequest, compare, plan)
 from repro_torch.core.dag import DagEnsemble
 from repro_torch.core.des_torch import DESOptions
 from repro_torch.core.ga import GAOptions, delta_fast
@@ -73,10 +74,11 @@ def test_plan_is_deterministic(dag4):
 
 
 def test_compare_baselines_and_delta_fast(dag4):
-    res = compare(dag4, ga_options=GAOptions(**_small(pop_size=8,
-                                                      max_generations=2),
-                                             des_options=CPU))
-    assert list(res) == list(METHODS)
+    res = compare(dag4, methods=METHODS[:4],
+                  ga_options=GAOptions(**_small(pop_size=8,
+                                                max_generations=2),
+                                       des_options=CPU))
+    assert list(res) == list(METHODS[:4])
     for r in res.values():
         assert r.feasible and np.isfinite(r.makespan)
         assert 0.0 < r.nct < np.inf and r.total_ports == int(r.x.sum())
@@ -84,24 +86,34 @@ def test_compare_baselines_and_delta_fast(dag4):
 
 def test_plan_without_cuda_raises(dag4, monkeypatch):
     """No CUDA device and none named: plan() refuses instead of running on
-    the CPU, for every method."""
+    the CPU, for every method and kind, those whose first stage is the
+    host's MILP too; so does compare()."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for method in METHODS:
+    requests = [PlanRequest(dag=dag4, method=m) for m in METHODS]
+    requests += [PlanRequest(ensemble=DagEnsemble([dag4]), method=m)
+                 for m in ROBUST_METHODS]
+    requests += [PlanRequest(dag=dag4, failure=FailureModel()),
+                 PlanRequest(dag=dag4, failure=FailureModel(resilient=True))]
+    for req in requests:
         with pytest.raises(RuntimeError, match="CUDA device"):
-            plan(PlanRequest(dag=dag4, method=method))
+            plan(req)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        compare(dag4)
 
 
 def test_later_slices_raise_not_implemented(dag4):
-    for method in ("delta-topo", "delta-joint", "delta-joint-hotstart",
-                   "delta-robust"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            plan(PlanRequest(dag=dag4, method=method, des_options=CPU))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        plan(PlanRequest(ensemble=DagEnsemble([dag4])))
+    """Only the fleet kind waits for a later slice; an unknown method is
+    still refused."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         plan(PlanRequest(fleet_requests=[("a", port_job(2))]))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        plan(PlanRequest(fleet_requests=[("a", port_job(2))],
+                         des_options=CPU))
     with pytest.raises(ValueError, match="unknown method"):
         plan(PlanRequest(dag=dag4, method="nope", des_options=CPU))
+    with pytest.raises(ValueError, match="unknown method"):
+        plan(PlanRequest(ensemble=DagEnsemble([dag4]), method="nope",
+                         des_options=CPU))
 
 
 def test_port_imports_no_jax_and_no_reference():
