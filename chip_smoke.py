@@ -58,7 +58,27 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               the MILP on the host (HiGHS), a validate-clean schedule no
               worse than the same run's delta-fast;
  11. resilient plan() of gpt-7b with a zero MILP budget: the fallback
-              chain lands on its GA stage, which runs on the card.
+              chain lands on its GA stage, which runs on the card;
+ 12. trim     trim_ports on [plan]'s megatron-462b topology and
+              trim_ports_ensemble on [robust]'s winner, on the batched
+              path on the card (every drop-one candidate of a round in
+              one batch, one fill_maxmin launch per trip): ports before
+              and after, rounds, and every accepted drop certified by the
+              numpy DES;
+ 13. planes   delta_planes on megatron-462b with 4 planes (48 genomes x 5
+              fabric states = 240 lanes per spare-stage batch): the
+              winner's split and every one-plane-dark state against the
+              numpy DES, s/generation and the idle share of a batch;
+ 14. fleet    the paper's Fig. 10 pair (a port-minimized donor and its
+              reversed-stage co-tenant) through plan(kind="fleet") at the
+              Table-I width of megatron-177b (the co-tenant's NCT before
+              and after the surplus is water-filled into it, fill_matvec
+              once per waterfill round) and of mixtral-8x22b (the largest
+              DAG, 2,065 tasks per tenant): the ledger after every event,
+              the engine-cache counts, the co-tenant's makespan against
+              the numpy DES; fill_matvec at the fleet's shape against its
+              plain version; the pair at gpt-7b on the card and on the
+              CPU (the same topologies).
 
 The kernels phase also holds fill_maxmin's member axis against its plain
 version: a sweep of 1-3 members, and the two members of each [robust]
@@ -68,7 +88,8 @@ launch of that member alone).
 
 Any failed check or error exits non-zero.  Without a CUDA device, or
 without the port beside it, it exits non-zero before printing a result.
-The second-to-last line of standard output is the kernels' JSON record;
+The second-to-last line of standard output is the kernels' JSON record
+(fill_matvec twice: at the per-round DES path's shape and at the fleet's);
 the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -115,6 +136,20 @@ ROBUST_SEQ_LENS = (4096, 16384)   # the [robust] ensemble's two members
 ROBUST_MICROBATCHES = (128, 64)
 MEMBER_SWEEP = (257, 40, 600, 0.8)   # (N, C, E, density) of each member
 ROBUST_GENERATIONS = 3
+# depth cuts that keep the script inside its time limit with the fleet's
+# phases added (PERF.md section 4): the [robust] microbatch pair's
+# generations, and every SINGLES_STRIDE-th genome of [des]'s batch
+# simulated alone
+ROBUST_MB_GENERATIONS = 2
+SINGLES_STRIDE = 4
+PLANES = 4              # OCS planes of the [planes] decomposition
+FLEET_GENERATIONS = 3   # GA depth of each [fleet] tenant at full width
+# the megatron-177b Fig. 10 pair's waterfill: W (P, T*P) @ (T*P, 2) with
+# P = 24 pods and T = 1 bottlenecked tenant
+FLEET_MATVEC = (24, 24, 2)
+# [trim]'s ensemble sweep starts this many circuits above the single-DAG
+# sweep's result on each of the two pod pairs of most volume
+TRIM_ENSEMBLE_EXTRA = 2
 # plan() on megatron-462b (48 genomes, 5 generations, seed 0) on the
 # per-round kernel path, as PERF.md records it
 ROUND_PATH_PORTS, ROUND_PATH_MAKESPAN = 122, 93.60538748389672
@@ -285,6 +320,20 @@ def kernel_waterfill() -> dict:
         ("torch.matmul", lambda: torch.matmul(w, rhs)))}
     log("[kernels] device time per call (profiler): " + ", ".join(
         f"{k} {v}" for k, v in dev_us.items()))
+    # the fleet's waterfill shape ([fleet] holds its own operands against
+    # the plain version and times them; their device time is taken here)
+    c, n, r = FLEET_MATVEC
+    w, rhs = w_of(c, n), torch.from_numpy(rng.random((n, r)).astype(
+        np.float32)).to(dev)
+    _check_close(f"fill_matvec C={c} N={n} R={r}",
+                 waterfill.fill_matvec(w, rhs), fill_matvec_ref(w, rhs))
+    dev_us = {name: _device_us_per_call(fn) for name, fn in (
+        ("kernel", lambda: waterfill.fill_matvec(w, rhs)),
+        ("plain", lambda: fill_matvec_ref(w, rhs)),
+        ("torch.matmul", lambda: torch.matmul(w, rhs)))}
+    log(f"[kernels] fill_matvec at the fleet's shape C={c} N={n} R={r}: "
+        f"device time per call (profiler): " + ", ".join(
+            f"{k} {v}" for k, v in dev_us.items()))
     return {"name": "waterfill.fill_matvec", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/waterfill.cu",
             "replaces": "src/repro/kernels/waterfill.py:47",
@@ -1006,24 +1055,27 @@ def phase_des(dag) -> None:
     des = engines["cuda"]
     t0 = time.perf_counter()
     worst = 0.0
-    for i, x in enumerate(space.to_matrix_batch(genomes)):
+    picked = range(0, LANES, SINGLES_STRIDE)
+    for i, x in zip(picked, space.to_matrix_batch(genomes[::SINGLES_STRIDE])):
         ms, feas, _, _ = des.simulate(x)
         if feas != bool(feas_f[i]):
             fail(f"genome {i}: batched feasible {feas_f[i]}, single {feas}")
         if feas:
             worst = max(worst, abs(ms - ms_f[i]) / ms)
     t_single = time.perf_counter() - t0
-    log(f"[des] {LANES} single calls {t_single:.2f} s; max rel diff from "
-        f"the batch {worst:.3e} ({int(feas_f.sum())} of {LANES} feasible in the batch)")
+    log(f"[des] {len(picked)} single calls (every {SINGLES_STRIDE}th "
+        f"genome of the batch) {t_single:.2f} s; max rel diff from the "
+        f"batch {worst:.3e} ({int(feas_f.sum())} of {LANES} feasible in the "
+        f"batch)")
     if not worst <= 1e-6:
         fail(f"batched makespans differ from single ones by rel {worst}")
 
 
-def phase_plan(dag) -> tuple[int, int]:
+def phase_plan(dag) -> tuple[int, int, object]:
     """plan(delta-fast) at full width on the fused path, on the per-round
     path, and on the fused path again; returns the fill_maxmin launches
-    of the first fused run and the fill_round launches of the per-round
-    run."""
+    of the first fused run, the fill_round launches of the per-round run
+    and the fused runs' topology."""
     import numpy as np
     from repro_torch import obs
     from repro_torch.core.api import PlanRequest, plan
@@ -1076,7 +1128,7 @@ def phase_plan(dag) -> tuple[int, int]:
     log(f"[plan] two fused runs: identical x and makespan; the per-round "
         f"run's x is {'identical' if np.array_equal(a.x, r.x) else 'other'}"
         f" (makespan {float(r.makespan)!r} s)")
-    return ca["maxmin"], cr["launches"]
+    return ca["maxmin"], cr["launches"], a.x
 
 
 def phase_small_parity() -> None:
@@ -1273,12 +1325,13 @@ def _engine_batch(tag: str, eng, space, masks=None) -> None:
         fail(f"{tag} batch: {c['maxmin']} launches for {c['trips']} trips")
 
 
-def phase_robust(dags, mb_dags) -> None:
+def phase_robust(dags, mb_dags):
     """plan(delta-robust, max-regret) of megatron-462b at two sequence
     lengths, refs by the facade's delta-fast; then one 96-lane batch of
     the ensemble engine alone and the winner on the card against the
     numpy DES; then delta_robust on megatron-462b at two microbatch
-    counts, whose members differ in structure, and its winner likewise."""
+    counts, whose members differ in structure, and its winner likewise.
+    Returns the sequence-length ensemble."""
     import numpy as np
     from repro_torch import obs
     from repro_torch.core.api import PlanRequest, plan
@@ -1334,7 +1387,7 @@ def phase_robust(dags, mb_dags) -> None:
     _reset_counts()             # this path's counts start at 0
     t0 = time.perf_counter()
     with obs.enabled():
-        rob = delta_robust(mb, _robust_ga(ROBUST_GENERATIONS),
+        rob = delta_robust(mb, _robust_ga(ROBUST_MB_GENERATIONS),
                            objective="weighted", refs=np.ones(2))
     wall = time.perf_counter() - t0
     c = _counts()
@@ -1348,7 +1401,7 @@ def phase_robust(dags, mb_dags) -> None:
     _trips_and_launches("robust", c, spans["ga.fitness_batch"]["count"])
     eng = EnsembleTorchDES([DESProblem(d) for d in mb_dags])
     if not eng.pad.n > min(d.num_tasks for d in mb_dags) \
-            or gens != ROBUST_GENERATIONS or not rob.feasible:
+            or gens != ROBUST_MB_GENERATIONS or not rob.feasible:
         fail(f"robust microbatch pair: pad {eng.pad}, generations {gens}, "
              f"feasible {rob.feasible}")
     got, feas = eng.makespans(rob.x)
@@ -1360,6 +1413,7 @@ def phase_robust(dags, mb_dags) -> None:
         fail(f"robust microbatch winner: card {got} vs numpy "
              f"{rob.makespans}")
     log(f"[robust] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return ens
 
 
 def _failsafe_scenarios(dag, top: int = 3, planes: int = 4):
@@ -1521,6 +1575,384 @@ def phase_resilient() -> None:
     log(f"[resilient] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _reset_fleet_counts() -> None:
+    from repro_torch.obs import REGISTRY
+    _reset_counts()
+    REGISTRY.counter("fleet_waterfill_rounds_total").reset()
+
+
+def _batches(entry: str) -> int:
+    """The `des.simulate` spans of one entry point in the tracer."""
+    from repro_torch import obs
+    return sum(1 for r in obs.TRACER.records if r.name == "des.simulate"
+               and r.attrs.get("entry") == entry)
+
+
+def _certified(module):
+    """Wrap `module.simulate` to record every (x, makespan) it returns, so
+    a trimming sweep's numpy certifications can be read back."""
+    calls: list[tuple] = []
+    inner = module.simulate
+
+    def recording(problem, x, *a, **kw):
+        res = inner(problem, x, *a, **kw)
+        calls.append((x.copy(), res.makespan))
+        return res
+    module.simulate = recording
+    return calls, lambda: setattr(module, "simulate", inner)
+
+
+def _sweep(tag: str, run, problems, x0):
+    """One trimming sweep with the counts at 0 before it: ports, rounds,
+    launches == trips, and every accepted drop certified by the numpy DES
+    within every member's budget.  Returns the trimmed topology."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core import ga
+
+    budgets = [ga.simulate(p, x0).makespan * (1 + 1e-6) for p in problems]
+    calls, restore = _certified(ga)
+    obs.TRACER.clear()
+    _reset_counts()             # this path's counts start at 0
+    t0 = time.perf_counter()
+    try:
+        with obs.enabled():
+            out = run(x0)
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    rounds = _batches("batch_x") + _batches("ensemble_genomes")
+    drops = (int(x0.sum()) - int(out.sum())) // 2
+    # one group of calls per certified topology (a member over its budget
+    # ends its group early); the first group is the sweep's own base run,
+    # and after it each topology within every member's budget is an
+    # accepted drop
+    groups: list[tuple] = []
+    for xt, ms in calls:
+        if groups and len(groups[-1][1]) < len(problems) \
+                and np.array_equal(groups[-1][0], xt):
+            groups[-1][1].append(ms)
+        else:
+            groups.append((xt, [ms]))
+    certs = groups[1:]
+    accepted = [xt for xt, ms in certs if len(ms) == len(problems)
+                and all(m <= b for m, b in zip(ms, budgets))]
+    final = [ga.simulate(p, out).makespan for p in problems]
+    log(f"[trim] {tag} on megatron-462b ({len(problems)} member(s)): ports "
+        f"{int(x0.sum())} -> {int(out.sum())} ({drops} circuits dropped) in "
+        f"{rounds} rounds, {wall:.2f} s; {len(certs)} numpy "
+        f"certifications, {len(accepted)} accepted; makespans {final} "
+        f"within budgets {budgets}")
+    _trips_and_launches("trim", c, rounds)
+    if rounds == 0 or drops == 0 or len(accepted) != drops \
+            or not all(m <= b for m, b in zip(final, budgets)) \
+            or not (out == out.T).all() or out.sum() > x0.sum():
+        fail(f"{tag}: {rounds} rounds, {drops} drops, {len(accepted)} "
+             f"certified, makespans {final} vs budgets {budgets}")
+    for xt in accepted:
+        if not all(ga.simulate(p, xt).makespan <= b
+                   for p, b in zip(problems, budgets)):
+            fail(f"{tag}: an accepted drop exceeds its budget")
+    return out
+
+
+def phase_trim(dag, x, ens) -> None:
+    """trim_ports on [plan]'s megatron-462b topology, then
+    trim_ports_ensemble on [robust]'s sequence-length ensemble, both on
+    the batched path on the card (every drop-one candidate of a round in
+    one batch).  The ensemble sweep starts TRIM_ENSEMBLE_EXTRA circuits
+    above the single-DAG sweep's result on each of the ensemble's two pod
+    pairs of most volume (a cut of its depth: from [robust]'s winner it
+    would repeat the single-DAG sweep's 25 rounds)."""
+    from repro_torch.core.des import DESProblem
+    from repro_torch.core.ga import trim_ports, trim_ports_ensemble
+
+    t_phase = time.perf_counter()
+    trimmed = _sweep("trim_ports", lambda x0: trim_ports(
+        dag, x0, backend="torch"), [DESProblem(dag)], x)
+    vol = sum(m.traffic_matrix() for m in ens.members)
+    pairs = sorted(ens.undirected_pairs(),
+                   key=lambda p: (-(vol[p] + vol[p[::-1]]), p))[:2]
+    start = trimmed.copy()
+    for i, j in pairs:
+        start[i, j] += TRIM_ENSEMBLE_EXTRA
+        start[j, i] += TRIM_ENSEMBLE_EXTRA
+    _sweep(f"trim_ports_ensemble (from the single-DAG result + "
+           f"{TRIM_ENSEMBLE_EXTRA} circuits on pairs {pairs})",
+           lambda x0: trim_ports_ensemble(ens, x0, backend="torch"),
+           [DESProblem(m) for m in ens.members], start)
+    log(f"[trim] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_planes(dag) -> None:
+    """delta_planes on megatron-462b with 4 planes, LANES genomes and 3
+    generations (LANES x 5 fabric states = 240 lanes per spare-stage
+    batch): the winner's per-plane split and every one-plane-dark state
+    against the numpy DES, s/generation and the idle share of a batch."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.dag import DagEnsemble
+    from repro_torch.core.des import DESProblem, simulate
+    from repro_torch.core.des_torch import (EnsembleTorchDES,
+                                            plane_state_genomes)
+    from repro_torch.core.ga import delta_planes
+    from repro_torch.fleet import effective_topology
+
+    t_phase = time.perf_counter()
+    ens = DagEnsemble.singleton(dag)
+    obs.TRACER.clear()
+    _reset_counts()             # this path's counts start at 0
+    t0 = time.perf_counter()
+    with obs.enabled():
+        res = delta_planes(ens, _robust_ga(ROBUST_GENERATIONS),
+                           num_planes=PLANES)
+    wall = time.perf_counter() - t0
+    c = _counts()
+    gen_s, gens = _evolve_gen_s("delta_planes")
+    base_s, base_gens = _evolve_gen_s("delta_robust")
+    batches = _batches("ensemble_genomes")
+    log(f"[planes] delta_planes megatron-462b, {PLANES} planes, {LANES} "
+        f"genomes: {wall:.2f} s; base stage {base_gens} generations at "
+        f"{base_s:.3f} s/generation ({LANES} lanes), spare stage {gens} "
+        f"generations at {gen_s:.3f} s/generation ({LANES} x "
+        f"{PLANES + 1} = {LANES * (PLANES + 1)} lanes); {res.total_ports} "
+        f"ports, planes {[int(p.sum()) for p in res.planes]}, worst dark "
+        f"regret {res.worst_dark_regret!r}")
+    _trips_and_launches("planes", c, batches)
+    budgets = np.asarray(res.plane_port_limits)
+    usage = np.stack([np.triu(p, 1).sum(0) + np.triu(p, 1).sum(1)
+                      for p in res.planes])
+    if gens != ROBUST_GENERATIONS or not res.feasible \
+            or not np.array_equal(res.planes.sum(axis=0), res.x) \
+            or (usage > budgets).any():
+        fail(f"planes: generations {gens}, feasible {res.feasible}, "
+             f"usage {usage.tolist()} vs budgets {budgets.tolist()}")
+    # the winner's states: exact numpy DES on each effective topology,
+    # and the card's state lanes within DES_RTOL of it
+    prob = DESProblem(dag)
+    exact = [simulate(prob, effective_topology(res.planes, d)).makespan
+             for d in [set()] + [{p} for p in range(PLANES)]]
+    want = np.concatenate([res.makespans, res.dark_makespans[:, 0]])
+    eu = np.asarray([e[0] for e in res.edges])
+    ev = np.asarray([e[1] for e in res.edges])
+    eng = EnsembleTorchDES([prob])
+    states = plane_state_genomes(res.lane_genomes)
+    got, feas = eng.ensemble_genome_makespan(states, eu, ev)
+    rel = np.abs(got[:, 0] - want) / want
+    log(f"[planes] winner's {PLANES + 1} fabric states: numpy DES "
+        f"{want.tolist()}, on the card rel {rel.tolist()}")
+    if exact != want.tolist() or not feas.all() or not (rel <= DES_RTOL
+                                                          ).all():
+        fail(f"planes winner: exact {exact}, recorded {want.tolist()}, "
+             f"card rel {rel.tolist()}")
+    # one spare-stage batch alone: 240 lanes, wall and device busy time
+    genomes = np.random.default_rng(0).integers(
+        0, 3, size=(LANES, len(eu)))
+    lanes = np.concatenate([np.broadcast_to(
+        res.lane_genomes[None, :-1], (LANES, PLANES - 1, len(eu))),
+        genomes[:, None]], axis=1)
+    batch_states = plane_state_genomes(lanes).reshape(-1, len(eu))
+
+    def batch():
+        return eng.ensemble_genome_makespan(batch_states, eu, ev)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    busy = _device_only_busy_s(batch)
+    log(f"[planes] one spare-stage batch of {len(batch_states)} lanes: "
+        f"{wall:.3f} s, {c['trips']:.0f} trips, {c['maxmin']} fill_maxmin "
+        f"launches; device busy {busy:.4f} s, idle share "
+        + (f"{1.0 - busy / wall:.4f}" if busy else "not measured"))
+    if c["maxmin"] != c["trips"] or c["maxmin"] == 0:
+        fail(f"planes batch: {c['maxmin']} launches for {c['trips']} trips")
+    log(f"[planes] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def _fleet_pair(workload: str, microbatches: int, ga, des_options=None):
+    """The Fig. 10 pair (benchmarks/fig10_realloc.py:22-45) through the
+    port's plan(): a port-minimized donor and its reversed-stage
+    co-tenant on the same pods."""
+    from repro_torch.configs import PAPER_WORKLOADS, make_job
+    from repro_torch.core.api import FleetOptions, PlanRequest, plan
+    from repro_torch.fleet import JobArrival
+    job = make_job(PAPER_WORKLOADS[workload], microbatches=microbatches)
+    pl = job.placement()
+    return job, plan(PlanRequest(
+        fleet_requests=[JobArrival("model", job, port_min=True),
+                        JobArrival("model_t", job, reverse_stages=True)],
+        ga_options=ga, des_options=des_options,
+        fleet=FleetOptions(num_pods=pl.num_pods,
+                           ports_per_pod=2 * max(pl.port_limits()),
+                           nic_gbps=100.0)))
+
+
+def _fleet_run(workload: str, microbatches: int, generations: int,
+               realloc: bool):
+    """One Fig. 10 pair at Table-I width on the card, with the counts at 0
+    before it: the co-tenant's NCT before and after reallocation, the
+    donated surplus, the ledger after every event, the report's engine
+    cache, one fill_maxmin launch per trip, and (with `realloc`) one
+    fill_matvec launch per waterfill round, at least one; the co-tenant's
+    certified makespan against the numpy DES and the card.  Returns the
+    fill_matvec launches and the operands of the last one."""
+    import numpy as np
+    import torch
+    from repro_torch.core.des import DESProblem, simulate
+    from repro_torch.core.ga import GAOptions
+    from repro_torch.fleet import ledger, realloc as realloc_mod
+    from repro_torch.obs import REGISTRY
+
+    t0 = time.perf_counter()
+    checks = []
+    inner_check = ledger.PortLedger.check
+
+    def counted(self):
+        inner_check(self)
+        for acct in self.accounts.values():
+            if not (acct.allocated + acct.surplus == acct.limits).all():
+                fail(f"fleet {workload}: a tenant's books do not balance")
+        checks.append(self.pool().copy())
+    operands = []
+    inner_mv = realloc_mod.ops.fill_matvec
+
+    def spy(w, rhs, **kw):
+        operands.append((w, rhs))
+        return inner_mv(w, rhs, **kw)
+    ledger.PortLedger.check = counted
+    realloc_mod.ops.fill_matvec = spy
+    # the GA on the card whatever the DAG's size (a 2,065-task DAG is
+    # beyond GAOptions.device_task_limit, which would pick the numpy DES)
+    ga = GAOptions(seed=0, pop_size=LANES, max_generations=generations,
+                   patience=60, time_limit=1e9, backend="torch")
+    _reset_fleet_counts()           # this path's counts start at 0
+    try:
+        job, res = _fleet_pair(workload, microbatches, ga)
+    finally:
+        ledger.PortLedger.check = inner_check
+        realloc_mod.ops.fill_matvec = inner_mv
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    rounds = int(REGISTRY.counter("fleet_waterfill_rounds_total").value())
+    planner, report = res
+    donor, cot = planner.history[0], planner.history[1]
+    model_t = planner.tenants["model_t"]
+    dag = model_t.dag
+    tag = f"fleet {workload}"
+    log(f"[fleet] {workload} x2 at {microbatches} microbatches (model "
+        f"port-min, model_t reversed), {dag.num_tasks} tasks and "
+        f"{len(dag.undirected_pairs())} pod pairs each, "
+        f"{planner.fleet.num_pods} pods x {planner.fleet.ports_per_pod} "
+        f"ports, {LANES} genomes x {generations} generations: plan "
+        f"{wall:.2f} s")
+    log(f"[fleet] donor NCT {float(donor['nct'])!r}, {donor['ports']} "
+        f"ports, donated {donor['donated_ports']}; co-tenant NCT before "
+        f"{float(cot['nct'])!r} after {float(model_t.plan.nct)!r}, realloc "
+        f"{report['realloc']}")
+    log(f"[fleet] ledger checked after each of {len(planner.history)} "
+        f"events ({len(checks)} checks), pool {checks[-1].tolist()}; "
+        f"des_cache {report['des_cache']}; plan cache {report['cache']}")
+    log(f"[fleet] fill_matvec {c['launches']} launches in {rounds} "
+        f"waterfill rounds; fill_maxmin {c['maxmin']} launches in "
+        f"{c['trips']:.0f} trips")
+    cert = simulate(DESProblem(dag), model_t.plan.x)
+    card = model_t.des().makespan(model_t.plan.x)
+    rel = abs(card - cert.makespan) / cert.makespan
+    log(f"[fleet] co-tenant certified makespan {model_t.plan.makespan!r}, "
+        f"numpy DES {cert.makespan!r}, on the card {card!r} (rel "
+        f"{rel:.3e})")
+    if c["launches"] != rounds or c["maxmin"] != c["trips"] \
+            or c["maxmin"] == 0 or len(checks) < len(planner.history) \
+            or not model_t.plan.nct <= cot["nct"] * (1 + 1e-9) \
+            or model_t.plan.makespan != cert.makespan \
+            or not rel <= DES_RTOL or donor["donated_ports"] <= 0 \
+            or report["des_cache"]["hits"] + report["des_cache"]["misses"] \
+            == 0:
+        fail(f"{tag}: fill_matvec {c['launches']} launches for {rounds} "
+             f"rounds, fill_maxmin {c['maxmin']} for {c['trips']} trips, "
+             f"{len(checks)} ledger checks, NCT {cot['nct']} -> "
+             f"{model_t.plan.nct}, card rel {rel}")
+    if realloc and (rounds == 0 or report["realloc"]["granted_ports"] == 0
+                    or not model_t.plan.nct < cot["nct"]):
+        fail(f"{tag}: {rounds} waterfill rounds, realloc {report['realloc']}"
+             f", NCT {cot['nct']} -> {model_t.plan.nct}")
+    log(f"[fleet] {workload} wall {time.perf_counter() - t0:.1f} s")
+    return c["launches"], operands[-1] if operands else None
+
+
+def phase_fleet() -> dict:
+    """The Fig. 10 pair through the port's plan(kind="fleet") on the card:
+    at megatron-177b's Table-I width, where the reversed co-tenant is
+    bandwidth-bottlenecked and the donor's surplus is water-filled into
+    it (fill_matvec once per round); at mixtral-8x22b's, whose 2,065-task
+    DAG is the largest a tenant's GA runs (n = 2,112 per fill_maxmin
+    block; all its traffic is on one pod pair, so the co-tenant is not
+    bottlenecked and no surplus pass runs); fill_matvec at the fleet's
+    shape against its plain version and torch.matmul; the pair at gpt-7b
+    on the card and on the CPU.  Returns fill_matvec's kernel record at
+    the fleet's shape, its launches those of the megatron-177b run."""
+    import numpy as np
+    import torch
+    from repro_torch.core.des_torch import DESOptions
+    from repro_torch.core.ga import GAOptions
+    from repro_torch.kernels import waterfill
+    from repro_torch.kernels.ref import fill_matvec_ref
+
+    t_phase = time.perf_counter()
+    launches, (w, rhs) = _fleet_run("megatron-177b", 48, FLEET_GENERATIONS,
+                                    realloc=True)
+    _fleet_run("mixtral-8x22b", 64, FLEET_GENERATIONS, realloc=False)
+
+    # fill_matvec at the fleet's shape: W (P, T*P) @ rhs (T*P, 2)
+    got = waterfill.fill_matvec(w, rhs)
+    torch.cuda.synchronize()
+    max_abs, _ = _check_close(f"fill_matvec fleet shape {tuple(w.shape)} @ "
+                              f"{tuple(rhs.shape)}", got,
+                              fill_matvec_ref(w, rhs))
+    ms = time_ms(lambda: waterfill.fill_matvec(w, rhs))
+    plain_ms = time_ms(lambda: fill_matvec_ref(w, rhs))
+    library_ms = time_ms(lambda: torch.matmul(w, rhs))
+    (c_, n_), r_ = w.shape, rhs.shape[1]
+    b_ms, b_by = bound_ms(4.0 * (c_ * n_ + n_ * r_ + c_ * r_),
+                          2.0 * c_ * n_ * r_)
+    log(f"[fleet] fill_matvec C={c_} N={n_} R={r_}: kernel {ms:.5f} ms/call,"
+        f" plain {plain_ms:.5f}, torch.matmul {library_ms:.5f}, bound "
+        f"{b_ms:.7f} ms ({b_by}); max abs err {max_abs:.3e} (device time "
+        f"per call at this shape: [kernels])")
+    if (c_, n_, r_) != FLEET_MATVEC:
+        fail(f"fleet: fill_matvec ran at ({c_}, {n_}) @ ({n_}, {r_}), "
+             f"[kernels] profiled {FLEET_MATVEC}")
+
+    # the same pair at gpt-7b, on the card and on the CPU
+    small = GAOptions(seed=0, pop_size=16, max_generations=6, patience=60,
+                      time_limit=1e9)
+    _, on_card = _fleet_pair("gpt-7b", 4, small)
+    _, on_cpu = _fleet_pair("gpt-7b", 4, small, DESOptions(device="cpu"))
+    same = all(np.array_equal(on_card.planner.tenants[n].plan.x,
+                              on_cpu.planner.tenants[n].plan.x)
+               for n in ("model", "model_t"))
+    log(f"[fleet] gpt-7b pair: card NCTs "
+        f"{[float(t['nct']) for t in on_card.report['tenants'].values()]}"
+        f", CPU "
+        f"{[float(t['nct']) for t in on_cpu.report['tenants'].values()]}"
+        f", identical x per tenant {same}")
+    if not same:
+        fail("fleet: the gpt-7b pair plans differently on the card")
+    log(f"[fleet] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "waterfill.fill_matvec (fleet waterfill_grants)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/waterfill.cu",
+            "replaces": "src/repro/kernels/waterfill.py:47",
+            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -1537,17 +1969,21 @@ def main() -> int:
     tclosure, closure_steps = kernel_tclosure(dag)
     maxplus, paths_steps = kernel_maxplus(dag)
     phase_des(dag)
-    maxmin["launches"], waterfill["launches"] = phase_plan(dag)
+    maxmin["launches"], waterfill["launches"], x = phase_plan(dag)
     phase_small_parity()
     tclosure["launches"], t_up = phase_xbound(dag, closure_steps)
     maxplus["launches"] = phase_paths(dag, t_up, paths_steps)
-    phase_robust(dags, mb_dags)
+    ens = phase_robust(dags, mb_dags)
     phase_failsafe(dag)
     phase_milp()
     phase_resilient()
+    phase_trim(dag, x, ens)
+    phase_planes(dag)
+    fleet_matvec = phase_fleet()
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
         f", the build included")
-    log(json.dumps({"kernels": [waterfill, maxmin, tclosure, maxplus]}))
+    log(json.dumps({"kernels": [waterfill, maxmin, tclosure, maxplus,
+                                fleet_matvec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,9 +3,15 @@
     result = plan(PlanRequest(dag=dag, method="delta-joint", port_min=True))
     robust = plan(PlanRequest(ensemble=DagEnsemble([dagA, dagB]),
                               objective="max-regret"))
+    fleet = plan(PlanRequest(fleet_requests=[("a", job_a), ("b", job_b)]))
     report = compare(dag)      # baselines, delta-fast, delta-topo/joint
 
-The port of `repro/core/api.py`.  Methods (``kind == "dag"``):
+The port of `repro/core/api.py`.  `PlanRequest` carries the what (dag |
+ensemble | fleet_requests, exactly one) and the how; `plan` dispatches on
+`request.kind`.  The historical facades (`optimize`, `optimize_ensemble`,
+`optimize_failsafe`, `optimize_resilient`, `fleet_optimize`) remain as
+thin shims that build the equivalent `PlanRequest`, with bit-identical
+results.  Methods (``kind == "dag"``):
 
   prop-alloc | sqrt-alloc | iter-halve    traffic-matrix baselines
   delta-fast                              GA (Alg. 3) on the torch DES
@@ -18,8 +24,9 @@ The port of `repro/core/api.py`.  Methods (``kind == "dag"``):
 An ensemble takes "delta-robust" (GA) or "delta-robust-milp" (shared-x
 multi-member MILP); a dag with a `FailureModel` is a failsafe request (GA
 over failure scenarios) or, with ``resilient=True``, a budgeted MILP with
-its fallback chain.  The fleet comes with a later slice of the port and
-raises `NotImplementedError` naming the ROADMAP.md item that brings it.
+its fallback chain.  A fleet request admits its jobs into a shared-pod
+fleet (`repro_torch.fleet`, paper Sec. VI) and returns the live planner
+and its report.
 
 Planning runs on the CUDA device unless `des_options` (or
 ``ga_options.des_options``) names another.  The device is settled before
@@ -37,7 +44,9 @@ import numpy as np
 from repro_torch.core.baselines import BASELINES
 from repro_torch.core.dag import VIRTUAL, CommDAG, DagEnsemble
 from repro_torch.core.des import DESProblem, DESResult, simulate
-from repro_torch.core.des_torch import DESOptions
+# des_cache_stats is re-exported so that callers tuning the engine need
+# only the facade
+from repro_torch.core.des_torch import DESOptions, des_cache_stats  # noqa: F401
 from repro_torch.core.ga import (ROBUST_OBJECTIVES, GAOptions, GAResult,
                                  delta_failsafe, delta_fast, delta_robust)
 from repro_torch.core.milp import (MILPOptions, MILPResult, solve_delta_milp,
@@ -49,9 +58,6 @@ METHODS = ("prop-alloc", "sqrt-alloc", "iter-halve",
            "delta-fast", "delta-topo", "delta-joint",
            "delta-joint-hotstart", "delta-robust")
 ROBUST_METHODS = ("delta-robust", "delta-robust-milp")
-# reference kinds that a later slice brings, by the ROADMAP.md item
-_LATER_KINDS = {"fleet": "'Modules to port' item 8 (fleet seams)"}
-
 
 @dataclass
 class PlanResult:
@@ -368,6 +374,48 @@ def _plan_resilient(dag: CommDAG, *, budget_s: float | None = None,
     return out
 
 
+def _plan_fleet(requests, num_pods: int | None = None,
+                ports_per_pod: int | None = None,
+                nic_gbps: float = 400.0,
+                ga_options: GAOptions | None = None,
+                nct_threshold: float = 1.005, seed: int = 0):
+    """Multi-tenant entry point (paper Sec. VI): admit every request into a
+    shared-pod fleet, donate port-minimized savings, waterfill the surplus
+    across bottlenecked tenants, and return the FleetPlanner for inspection.
+
+    `requests` is an iterable of `repro_torch.fleet.JobArrival` events or
+    `(name, JobSpec[, kwargs])` tuples.  The fleet defaults to the smallest
+    cluster that can host all requests back to back: the max pod span among
+    requests, with each pod sized for the sum of co-located entitlements.
+    Every engine of the fleet runs on ``ga_options.des_options``'s device.
+
+    Returns `(planner, report)`; `report` is `planner.report()` after all
+    arrivals and surplus passes.
+    """
+    from repro_torch.fleet import FleetPlanner, FleetSpec, arrivals
+
+    events = arrivals(*requests)
+    if not events:
+        raise ValueError("fleet_optimize needs at least one job request")
+
+    if num_pods is None or ports_per_pod is None:
+        spans, per_pod = [], []
+        for ev in events:
+            pl = ev.job.placement()
+            spans.append(pl.num_pods)
+            per_pod.append(max(pl.port_limits()))
+        num_pods = num_pods or max(spans)
+        # stack all co-located entitlements: every request fits, worst case
+        ports_per_pod = ports_per_pod or sum(per_pod)
+
+    planner = FleetPlanner(
+        FleetSpec(num_pods=num_pods, ports_per_pod=ports_per_pod,
+                  nic_gbps=nic_gbps),
+        ga_options=ga_options, nct_threshold=nct_threshold, seed=seed)
+    planner.process(events)
+    return planner, planner.report()
+
+
 # -------------------------------------------------------- unified entry
 @dataclass
 class FailureModel:
@@ -395,6 +443,29 @@ class FailureModel:
 
 
 @dataclass
+class FleetOptions:
+    """Fleet sizing + admission knobs for `plan(kind="fleet")`."""
+
+    num_pods: int | None = None
+    ports_per_pod: int | None = None
+    nic_gbps: float = 400.0
+    nct_threshold: float = 1.005
+    seed: int = 0
+
+
+@dataclass
+class FleetPlanResult:
+    """`plan` result for a fleet request: the live planner + its report."""
+
+    planner: object
+    report: dict
+
+    def __iter__(self):
+        # unpacks like the historical (planner, report) tuple
+        return iter((self.planner, self.report))
+
+
+@dataclass
 class PlanRequest:
     """One typed request for every planning mode.
 
@@ -416,6 +487,7 @@ class PlanRequest:
     port_min: bool = False
     refs: np.ndarray | None = None
     failure: FailureModel | None = None
+    fleet: FleetOptions | None = None
     ga_options: GAOptions | None = None
     milp_options: MILPOptions | None = None
     des_options: DESOptions | None = None
@@ -445,15 +517,12 @@ def _settle_device(ga: GAOptions | None) -> None:
 def plan(request: PlanRequest):
     """THE planner entry point: dispatch a `PlanRequest` by `kind`.
 
-    Returns `PlanResult` (dag / failsafe / resilient) or
-    `EnsemblePlanResult` (ensemble).  A MILP method's or the resilient
-    kind's `details["schedule"]` is the `MILPResult` it planned from, which
-    `milp.validate_solution` checks."""
+    Returns `PlanResult` (dag / failsafe / resilient),
+    `EnsemblePlanResult` (ensemble) or `FleetPlanResult` (fleet) -- the
+    same objects, bit-identical, that the legacy facades produce.  A MILP
+    method's or the resilient kind's `details["schedule"]` is the
+    `MILPResult` it planned from, which `milp.validate_solution` checks."""
     kind = request.kind
-    if kind in _LATER_KINDS:
-        raise NotImplementedError(
-            f"plan kind {kind!r} is not ported yet: ROADMAP.md "
-            f"{_LATER_KINDS[kind]}")
     ga = request.ga_options
     if request.des_options is not None:
         ga = dataclasses.replace(ga or GAOptions(),
@@ -476,8 +545,88 @@ def plan(request: PlanRequest):
                               num_planes=f.num_planes, k=f.k,
                               objective=f.objective, ga_options=ga,
                               ideal_result=request.ideal_result)
-    return _plan_resilient(request.dag, budget_s=f.budget_s,
-                           retries=f.retries, ga_options=ga,
-                           milp_options=request.milp_options,
-                           current_x=f.current_x, mask=f.mask,
-                           ideal_result=request.ideal_result)
+    if kind == "resilient":
+        return _plan_resilient(request.dag, budget_s=f.budget_s,
+                               retries=f.retries, ga_options=ga,
+                               milp_options=request.milp_options,
+                               current_x=f.current_x, mask=f.mask,
+                               ideal_result=request.ideal_result)
+    # kind == "fleet"
+    fo = request.fleet or FleetOptions()
+    planner, report = _plan_fleet(
+        request.fleet_requests, num_pods=fo.num_pods,
+        ports_per_pod=fo.ports_per_pod, nic_gbps=fo.nic_gbps,
+        ga_options=ga, nct_threshold=fo.nct_threshold, seed=fo.seed)
+    return FleetPlanResult(planner=planner, report=report)
+
+
+# ------------------------------------------------- deprecated facades
+# Thin shims over `plan` (bit-identical; parity-tested against the
+# reference's).  New code should build a `PlanRequest`.
+def optimize(dag: CommDAG, method: str = "delta-fast",
+             port_min: bool = False,
+             ga_options: GAOptions | None = None,
+             milp_options: MILPOptions | None = None,
+             ideal_result: DESResult | None = None) -> PlanResult:
+    """Deprecated: use ``plan(PlanRequest(dag=..., method=...))``."""
+    return plan(PlanRequest(dag=dag, method=method, port_min=port_min,
+                            ga_options=ga_options, milp_options=milp_options,
+                            ideal_result=ideal_result))
+
+
+def optimize_ensemble(ensemble: DagEnsemble, method: str = "delta-robust",
+                      objective: str = "max-regret",
+                      refs: np.ndarray | None = None,
+                      ga_options: GAOptions | None = None,
+                      milp_options: MILPOptions | None = None
+                      ) -> EnsemblePlanResult:
+    """Deprecated: use ``plan(PlanRequest(ensemble=..., objective=...))``."""
+    return plan(PlanRequest(ensemble=ensemble, method=method,
+                            objective=objective, refs=refs,
+                            ga_options=ga_options,
+                            milp_options=milp_options))
+
+
+def optimize_failsafe(dag: CommDAG,
+                      scenarios: list[np.ndarray] | None = None,
+                      num_planes: int = 4, k: int = 1,
+                      objective: str = "worst",
+                      ga_options: GAOptions | None = None,
+                      ideal_result: DESResult | None = None) -> PlanResult:
+    """Deprecated: use ``plan(PlanRequest(dag=..., failure=FailureModel(...)))``."""
+    return plan(PlanRequest(
+        dag=dag, ga_options=ga_options, ideal_result=ideal_result,
+        failure=FailureModel(scenarios=scenarios, num_planes=num_planes,
+                             k=k, objective=objective)))
+
+
+def optimize_resilient(dag: CommDAG, *, budget_s: float | None = None,
+                       retries: int = 1,
+                       ga_options: GAOptions | None = None,
+                       milp_options: MILPOptions | None = None,
+                       current_x: np.ndarray | None = None,
+                       mask: np.ndarray | None = None,
+                       ideal_result: DESResult | None = None) -> PlanResult:
+    """Deprecated: use ``plan(PlanRequest(dag=...,
+    failure=FailureModel(resilient=True, ...)))``."""
+    return plan(PlanRequest(
+        dag=dag, ga_options=ga_options, milp_options=milp_options,
+        ideal_result=ideal_result,
+        failure=FailureModel(resilient=True, budget_s=budget_s,
+                             retries=retries, current_x=current_x,
+                             mask=mask)))
+
+
+def fleet_optimize(requests, num_pods: int | None = None,
+                   ports_per_pod: int | None = None,
+                   nic_gbps: float = 400.0,
+                   ga_options: GAOptions | None = None,
+                   nct_threshold: float = 1.005, seed: int = 0):
+    """Deprecated: use ``plan(PlanRequest(fleet_requests=...,
+    fleet=FleetOptions(...)))``."""
+    res = plan(PlanRequest(
+        fleet_requests=list(requests), ga_options=ga_options,
+        fleet=FleetOptions(num_pods=num_pods, ports_per_pod=ports_per_pod,
+                           nic_gbps=nic_gbps, nct_threshold=nct_threshold,
+                           seed=seed)))
+    return res.planner, res.report

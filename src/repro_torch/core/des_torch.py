@@ -38,11 +38,17 @@ without host syncs (a CUDA graph or a persistent kernel) is later work.
 
 Problems are padded to quantized (tasks, deps, incidence, links) buckets
 with ghost semantics (`_problem_fields`), so padded results equal the
-exact-shape simulation up to float summation order.
+exact-shape simulation up to float summation order.  Every construction
+counts its bucket in a module-level LRU of bucket signatures (the
+reference's compile cache): fleet replans, ensemble members and trim
+candidates that land in an existing bucket count as hits, a new bucket as
+a miss (`des_cache_stats()`).  The port compiles nothing per bucket yet,
+so an entry is only its key.
 """
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from collections.abc import Callable
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -56,16 +62,18 @@ from repro_torch.core.des import DESProblem
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (csr_con_id, csr_warp_sums,
                                      progressive_filling)
-from repro_torch.obs import get_counter, span
+from repro_torch.obs import get_counter, get_gauge, get_logger, span
 
 __all__ = ["DESArrays", "DESOptions", "EnsembleTorchDES", "PadSpec",
-           "TorchDES", "default_max_events", "member_pad", "stack_problems",
-           "MAXMIN_BACKENDS"]
+           "TorchDES", "default_max_events", "des_cache_clear",
+           "des_cache_stats", "member_pad", "plane_state_genomes",
+           "stack_problems", "MAXMIN_BACKENDS"]
 
 INF = math.inf
 MAXMIN_BACKENDS = ("auto", "cuda", "cuda-round", "ref", "segment")
 BUCKET_QUANTUM = 64        # tasks, deps and incidence entries round up to this
 BUCKET_QUANTUM_CONS = 8    # link and NIC constraint blocks round up to this
+CACHE_SIZE = 64           # engine-cache buckets kept, least recent evicted
 
 # float32 coalescing bands of the reference engine (des_jax.py:359-363)
 EPS = 1e-6      # start events: ready <= t * (1 + EPS) + EPS * 1e-3
@@ -79,11 +87,26 @@ _TRIPS = get_counter("des_event_trips_total",
 _ROUNDS = get_counter("des_fill_rounds_total",
                       "torch DES max-min filling rounds (batched over lanes)")
 
+_log = get_logger("repro_torch.des_torch")
+
+# engine-cache accounting lives in the shared metrics registry so callers
+# (e.g. a FleetPlanner) can read scoped deltas instead of process-wide
+# totals; `des_cache_stats()` is the dict-shaped view of the same series.
+# The names are the reference's, whose entries are compiled executables.
+_HITS = get_counter("des_compile_hits_total",
+                    "simulator constructions reusing a cached bucket")
+_MISSES = get_counter("des_compile_miss_total",
+                      "simulator constructions opening a new bucket")
+_EVICTIONS = get_counter("des_compile_evictions_total",
+                         "engine-cache LRU evictions")
+_ENTRIES = get_gauge("des_compile_cache_entries",
+                     "live engine-cache buckets")
+
 
 # ------------------------------------------------------------------ options
 @dataclass(frozen=True)
 class DESOptions:
-    """Engine knobs for `TorchDES`.
+    """Engine knobs for `TorchDES`/`EnsembleTorchDES`.
 
       backend  'auto' -> 'cuda' on a CUDA device, 'ref' on the CPU.
                'cuda': every filling round of a trip in one launch of
@@ -96,11 +119,15 @@ class DESOptions:
       device   None -> 'cuda'; without a CUDA device that raises rather
                than run on the CPU, which needs device='cpu'
       bucket   pad the problem to the BUCKET_QUANTUM buckets
+      warn_on_miss  log a warning whenever a construction opens a new
+               engine-cache bucket; the fleet sets it so bucket churn
+               inside online replanning shows in the logs
     """
 
     backend: str = "auto"
     device: str | None = None
     bucket: bool = True
+    warn_on_miss: bool = False
 
     def resolve_device(self) -> torch.device:
         if self.device is not None:
@@ -363,6 +390,91 @@ def _maxmin(a: DESArrays, active: torch.Tensor, caps: torch.Tensor,
     return rates
 
 
+# ------------------------------------------------------------ engine cache
+class BucketKey(NamedTuple):
+    """Hashable static configuration of one bucket (the reference's
+    `_StaticCfg`, with the device in place of Pallas's interpret flag)."""
+    n: int
+    num_cons: int
+    num_link_cons: int
+    P: int
+    max_events: int
+    backend: str
+    device: str
+    members: int            # 0 = single problem, M = stacked ensemble
+
+
+_ENGINE_CACHE: OrderedDict[tuple, None] = OrderedDict()
+
+
+def des_cache_stats() -> dict:
+    """Module-level engine-cache counters: `hits` are simulator
+    constructions that landed in an existing bucket, `misses` opened a new
+    one.  Backed by the `repro_torch.obs` registry (`des_compile_*`
+    series), so planner-scoped deltas are available via
+    `REGISTRY.scope()`."""
+    return {"hits": int(_HITS.value()), "misses": int(_MISSES.value()),
+            "evictions": int(_EVICTIONS.value()),
+            "entries": len(_ENGINE_CACHE)}
+
+
+def des_cache_clear() -> None:
+    _ENGINE_CACHE.clear()
+    for c in (_HITS, _MISSES, _EVICTIONS):
+        c.reset()
+    _ENTRIES.set(0)
+
+
+def _count_bucket(key: BucketKey, pad: PadSpec,
+                  warn_on_miss: bool = False) -> None:
+    """Count one construction in its bucket, least recently used evicted
+    first beyond CACHE_SIZE buckets."""
+    k = (key, pad.d, pad.e)
+    if k in _ENGINE_CACHE:
+        _HITS.inc()
+        _ENGINE_CACHE.move_to_end(k)
+        return
+    # every miss counts whether or not the caller asked for the warning,
+    # so the counter is the one authoritative churn signal
+    _MISSES.inc()
+    if warn_on_miss:
+        _log.warning(
+            "DES engine-cache miss: new bucket n=%d deps=%d inc=%d "
+            "cons=%d/%d P=%d members=%d backend=%s device=%s", key.n, pad.d, pad.e, key.num_link_cons,
+            key.num_cons, key.P, key.members, key.backend, key.device)
+    _ENGINE_CACHE[k] = None
+    while len(_ENGINE_CACHE) > CACHE_SIZE:
+        _ENGINE_CACHE.popitem(last=False)
+        _EVICTIONS.inc()
+    _ENTRIES.set(len(_ENGINE_CACHE))
+
+
+def plane_state_genomes(lane_genomes: np.ndarray) -> np.ndarray:
+    """Fabric-state expansion of a k-plane lane decomposition.
+
+    `lane_genomes` is (..., k, E): per-plane circuit counts on the E
+    union pairs, summing (over planes) to the total topology genome.
+    Returns a float (..., k+1, E) stack -- state 0 is the full fabric
+    (lane sum) and state p+1 is plane p dark (total minus lane p).  A
+    pair carried entirely by the dark plane keeps a fractional
+    ``total / k`` trickle instead of zeroing out: circuits are the only
+    route between a pair, so a hard zero would price every single-lane
+    pair as an infinite makespan (the same transient-buffering
+    convention as `repro_torch.core.ga.failure_scenarios`).  These are
+    exactly the states a staggered rewire visits, so the GA's spare-lane
+    fitness and the transition scheduler price the same physics.
+    """
+    lanes = np.asarray(lane_genomes, dtype=np.float64)
+    if lanes.ndim < 2:
+        raise ValueError(f"lane_genomes needs a (k, E) tail, "
+                         f"got shape {lanes.shape}")
+    k = lanes.shape[-2]
+    total = lanes.sum(axis=-2, keepdims=True)           # (..., 1, E)
+    eff = total - lanes                                 # (..., k, E)
+    eff = np.where((eff <= 0) & (total > 0), total / k, eff)
+    return np.concatenate([total, eff], axis=-2)        # (..., k+1, E)
+
+
 # ------------------------------------------------------------------ engines
 class _LaneDES:
     """The batched event loop over lanes of (genome, member).
@@ -375,7 +487,10 @@ class _LaneDES:
     """
 
     def _setup(self, problems: list[DESProblem], arrays: DESArrays | None,
-               max_events: int | None, options: DESOptions | None) -> None:
+               max_events: int | None, options: DESOptions | None,
+               members: int) -> None:
+        """`members` is the bucket key's: 0 for one problem, M for an
+        ensemble, as the reference's cache keys them."""
         self.options = options or DESOptions()
         self.device = self.options.resolve_device()
         self.backend = self.options.resolve_backend(self.device)
@@ -393,6 +508,12 @@ class _LaneDES:
                            links=a.num_link_cons, cons=a.num_cons)
         self.max_events = int(max_events or default_max_events(a.n))
         self.P = problems[0].dag.cluster.num_pods
+        _count_bucket(
+            BucketKey(n=a.n, num_cons=a.num_cons,
+                      num_link_cons=a.num_link_cons, P=self.P,
+                      max_events=self.max_events, backend=self.backend,
+                      device=str(self.device), members=members),
+            self.pad, self.options.warn_on_miss)
         # the rate step, with the incidence it reads built once per
         # engine and shared by every round of every trip of every lane
         self._rates = _rate_step(a, self.backend)
@@ -545,7 +666,7 @@ class TorchDES(_LaneDES):
                  options: DESOptions | None = None,
                  arrays: DESArrays | None = None):
         self.problem = problem
-        self._setup([problem], arrays, max_events, options)
+        self._setup([problem], arrays, max_events, options, members=0)
         if self.M != 1:
             raise ValueError(f"TorchDES simulates one problem; the arrays "
                              f"hold {self.M} members (EnsembleTorchDES)")
@@ -604,7 +725,8 @@ class EnsembleTorchDES(_LaneDES):
         if not problems:
             raise ValueError("EnsembleTorchDES needs at least one member")
         self.problems = problems
-        self._setup(problems, arrays, max_events, options)
+        self._setup(problems, arrays, max_events, options,
+                    members=len(problems))
         if self.M != len(problems):
             raise ValueError(f"{len(problems)} problems but the arrays hold "
                              f"{self.M} members")

@@ -1,11 +1,13 @@
 """DELTA-Fast: DES-accelerated domain-adapted genetic algorithm
 (paper Sec. IV-B, Algs. 3, 5, 6) -- population-array-resident engine.
 
-The port of `repro/core/ga.py`'s single-DAG path (`delta_fast`) and its
+The port of `repro/core/ga.py`: the single-DAG path (`delta_fast`), its
 ensemble engines (`delta_robust`: one topology for the members of a
 `DagEnsemble`; `delta_failsafe`: one topology under fabric-failure
-scenarios), which score genomes x members in one batched call of
-`EnsembleTorchDES`.  Genome = integer
+scenarios; `delta_planes`: one robust topology split across k OCS planes,
+scored on every one-plane-dark fabric state), which score genomes x
+members in one batched call of `EnsembleTorchDES`, and the greedy port
+trimming sweeps (`trim_ports`, `trim_ports_ensemble`).  Genome = integer
 circuit counts over the active undirected pod pairs, bounded by the Alg. 2
 capacity bounds X̄ and repaired against the physical port budgets U.
 Fitness = DES makespan (primary) and total allocated circuits (secondary,
@@ -26,6 +28,7 @@ Fitness backends:
 """
 from __future__ import annotations
 
+import itertools
 import time
 from collections.abc import Callable, Sequence
 from dataclasses import dataclass, field
@@ -34,7 +37,8 @@ import numpy as np
 
 from repro_torch.core.dag import CommDAG, DagEnsemble
 from repro_torch.core.des import DESProblem, simulate
-from repro_torch.core.des_torch import DESOptions, EnsembleTorchDES, TorchDES
+from repro_torch.core.des_torch import (DESOptions, EnsembleTorchDES,
+                                        TorchDES, plane_state_genomes)
 from repro_torch.core.xbound import x_upper_bound
 from repro_torch.obs import get_counter, span
 
@@ -45,6 +49,43 @@ _EVALUATIONS = get_counter(
     "unique genomes scored by the DES (cache misses)")
 
 INF = float("inf")
+
+
+class InfeasiblePlacement(ValueError):
+    """A pod has more active pairs than ports: no topology with one circuit
+    per active pair fits its budget.  The fleet degrades on this error
+    alone (a robust replan to a single-DAG plan, a reduced replan to a
+    shrunk topology); every other error of a planning path propagates."""
+
+
+# float32 relative slack for the batched-DES pre-filter in the trimming
+# sweeps: accepts are always certified with the exact numpy DES, so the
+# filter margin only guards against false *negatives*
+_TRIM_FILTER_SLACK = 1e-3
+# candidates the float32 filter rejected by more than this relative band
+# are not exact-rechecked on termination: the engines agree to ~1e-5 on
+# the equivalence suites, so a >5% f32 overshoot of an exactly-acceptable
+# drop would need an f32 fair-share freeze flip with outsized schedule
+# impact.  If one ever occurs, the cost is bounded -- the sweep retains
+# ports it could have dropped; an accepted drop is always numpy-certified,
+# so the makespan budget is never violated either way.
+_TRIM_BACKSTOP_BAND = 5e-2
+TRIM_BACKENDS = ("auto", "torch", "numpy")
+
+
+def _trim_filter_bands(ms: np.ndarray, feas: np.ndarray, budgets
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """(fits, near) f32 pre-filter bands shared by the trimming sweeps.
+
+    `fits` passes the conservative accept filter; `near` is the ambiguous
+    band exact-rechecked before termination.  f32-infeasible rows stay in
+    the ambiguous band: the band bounds makespan divergence only, not a
+    feasibility misjudgment (rare, and cheap to recheck exactly).
+    Elementwise -- the ensemble sweep reduces across members afterwards.
+    """
+    fits = feas & (ms <= budgets * (1 + _TRIM_FILTER_SLACK) + 1e-12)
+    near = ~feas | (ms <= budgets * (1 + _TRIM_BACKSTOP_BAND) + 1e-12)
+    return fits, near
 
 
 @dataclass
@@ -150,7 +191,7 @@ class TopologySpace:
         # (moot when empty pairs are admitted)
         if self.g_min > 0 and (self.degree > self.U).any():
             p = int(np.argmax(self.degree - self.U))
-            raise ValueError(
+            raise InfeasiblePlacement(
                 f"pod {p} has {int(self.degree[p])} active pairs but "
                 f"only {self.U[p]} ports; placement is infeasible")
 
@@ -398,12 +439,12 @@ def _evolve(space: TopologySpace, fit, opts: GAOptions,
 
 def _exact_rerank(fit: _CachedFitness, best_g: np.ndarray,
                   score_of: Callable[[np.ndarray], float],
-                  port_weight: float) -> np.ndarray:
-    """The winner among the 8 best distinct cached genomes, re-ranked by
-    `score_of` (the exact numpy DES; the batched torch fitness runs in
+                  port_weight: float, top: int = 8) -> np.ndarray:
+    """The winner among the `top` best distinct cached genomes, re-ranked
+    by `score_of` (the exact numpy DES; the batched torch fitness runs in
     float32, with ~1e-5 ranking noise) plus the port penalty; `best_g`
     when none of them scores finite."""
-    ranked = sorted(fit.cache.items(), key=lambda kv: kv[1])[:8]
+    ranked = sorted(fit.cache.items(), key=lambda kv: kv[1])[:top]
     best_key, best_score = best_g.tobytes(), INF
     for key, fval in ranked:
         if not np.isfinite(fval):
@@ -574,7 +615,9 @@ class RobustGAResult:
 def delta_robust(ensemble: DagEnsemble, opts: GAOptions | None = None,
                  objective: str = "max-regret",
                  refs: np.ndarray | None = None,
-                 xbar: np.ndarray | None = None) -> RobustGAResult:
+                 xbar: np.ndarray | None = None,
+                 seeds: list[np.ndarray] | None = None,
+                 port_limits: Sequence[int] | None = None) -> RobustGAResult:
     """DELTA-Robust: one static topology for a *set* of DAGs.
 
     Runs the same domain-adapted GA as `delta_fast` (identical RNG stream
@@ -584,7 +627,12 @@ def delta_robust(ensemble: DagEnsemble, opts: GAOptions | None = None,
 
     `refs` are the per-member reference makespans defining regret
     (member's best single-DAG plan).  When omitted they are computed here
-    by running `delta_fast` per member with the same options.
+    by running `delta_fast` per member with the same options.  `seeds`
+    are (P, P) topologies repaired into the initial population.
+
+    `port_limits` overrides the cluster's per-pod budgets: the k-plane
+    decomposition (`delta_planes`) searches the base topology inside the
+    first k-1 planes' combined budget.
     """
     opts = opts or GAOptions()
     if objective not in ROBUST_OBJECTIVES:
@@ -601,7 +649,8 @@ def delta_robust(ensemble: DagEnsemble, opts: GAOptions | None = None,
         raise ValueError(f"refs must be finite positive makespans: {refs}")
 
     rng = np.random.default_rng(opts.seed)
-    space = TopologySpace.for_ensemble(ensemble, xbar)
+    space = TopologySpace.for_ensemble(ensemble, xbar,
+                                       port_limits=port_limits)
     fit = EnsembleFitness(ensemble, space, opts, objective, refs)
     # the robust GA gets its own full time budget: the per-member ref
     # runs above must not eat into _evolve's wall-clock limit
@@ -620,7 +669,7 @@ def delta_robust(ensemble: DagEnsemble, opts: GAOptions | None = None,
 
     with span("ga.evolve", kind="delta_robust", pop=opts.pop_size,
               edges=space.E, members=ensemble.num_members):
-        best_g, _, history, gen = _evolve(space, fit, opts, rng, t0)
+        best_g, _, history, gen = _evolve(space, fit, opts, rng, t0, seeds)
     best_g, best_ms = _rerank_members(fit, best_g, opts)
     obj = float(fit.scalarize(best_ms[None])[0])
     return RobustGAResult(
@@ -674,7 +723,8 @@ def delta_failsafe(dag: CommDAG, opts: GAOptions | None = None,
                    scenarios: list[np.ndarray] | None = None,
                    num_planes: int = 4, k: int = 1,
                    objective: str = "worst",
-                   xbar: np.ndarray | None = None) -> RobustGAResult:
+                   xbar: np.ndarray | None = None,
+                   seeds: list[np.ndarray] | None = None) -> RobustGAResult:
     """k-failure worst-case plan: one topology whose DES makespan is
     minimized across a set of fabric-degradation scenarios (capacity
     masks), scored in one genomes x masks batched DES call per
@@ -683,7 +733,8 @@ def delta_failsafe(dag: CommDAG, opts: GAOptions | None = None,
     `scenarios` is a list of (P, P) availability masks (1 = healthy);
     omitted, it defaults to `failure_scenarios(dag, num_planes, k)`.
     `objective` is 'worst' (minimize the max scenario makespan) or
-    'weighted' (uniform mean).  The repair policy also calls this with a
+    'weighted' (uniform mean).  `seeds` are (P, P) topologies repaired
+    into the initial population.  The repair policy also calls this with a
     single scenario -- the *current* fabric damage -- to produce a full
     replan optimized for the degraded fabric.
     """
@@ -717,7 +768,7 @@ def delta_failsafe(dag: CommDAG, opts: GAOptions | None = None,
 
     with span("ga.evolve", kind="delta_failsafe", pop=opts.pop_size,
               edges=space.E, members=len(scenarios)):
-        best_g, _, history, gen = _evolve(space, fit, opts, rng, t0)
+        best_g, _, history, gen = _evolve(space, fit, opts, rng, t0, seeds)
     # masked makespans are certified exactly before the winner is named
     best_g, best_ms = _rerank_members(fit, best_g, opts)
     obj = float(fit.scalarize(best_ms[None])[0])
@@ -728,3 +779,494 @@ def delta_failsafe(dag: CommDAG, opts: GAOptions | None = None,
         objective_value=obj, generations=gen, evaluations=fit.evaluations,
         elapsed=time.time() - t_start, history=history,
         feasible=bool(np.isfinite(best_ms).all()))
+
+
+# -------------------------------------------------------------- DELTA-Planes
+def split_across_planes(x: np.ndarray, plane_budgets) -> np.ndarray:
+    """Split one topology across OCS planes, balanced per pair.
+
+    `x` is a (P, P) symmetric circuit matrix; `plane_budgets` is (k', P)
+    per-plane per-pod port budgets.  Circuits are assigned one at a time,
+    heaviest pair first; each circuit goes to the plane with the smallest
+    share of that pair so far (then the most endpoint headroom, then the
+    lowest plane id), so every pair's per-plane share is within one of
+    c/k' wherever budgets permit -- losing any single plane then costs a
+    pair at most ceil(c/k') of its c circuits.  Deterministic: the fleet
+    rebuilds plane books from journal replays and must land on identical
+    arrays.
+
+    When the balanced choice has no port headroom the circuit falls to
+    any plane that fits; if none fits, one single-circuit swap between
+    planes is attempted before giving up (per-plane budgets are near-
+    uniform, so a feasible global topology virtually always splits).
+    """
+    x = np.asarray(x)
+    budgets = np.asarray(plane_budgets, dtype=np.int64)
+    if budgets.ndim != 2 or budgets.shape[1] != x.shape[0]:
+        raise ValueError(f"plane_budgets shape {budgets.shape} does not "
+                         f"match {x.shape[0]} pods")
+    k, P = budgets.shape
+    planes = np.zeros((k, P, P), dtype=np.int64)
+    head = budgets.copy()
+
+    def place(u: int, v: int) -> bool:
+        fits = np.nonzero((head[:, u] > 0) & (head[:, v] > 0))[0]
+        if len(fits) == 0:
+            return False
+        share = planes[fits, u, v]
+        room = np.minimum(head[fits, u], head[fits, v])
+        p = fits[np.lexsort((fits, -room, share))[0]]
+        planes[p, u, v] += 1
+        planes[p, v, u] += 1
+        head[p, u] -= 1
+        head[p, v] -= 1
+        return True
+
+    def swap_then_place(u: int, v: int) -> bool:
+        # free a slot: move one circuit (a, b) out of a plane p that has
+        # headroom at one endpoint, into a plane q that fits it, so (u, v)
+        # can land in p
+        for u0, v0 in ((u, v), (v, u)):
+            for p in np.nonzero(head[:, u0] > 0)[0]:
+                for b in np.nonzero(planes[p, v0] > 0)[0]:
+                    for q in np.nonzero((head[:, v0] > 0)
+                                        & (head[:, b] > 0))[0]:
+                        if q == p:
+                            continue
+                        planes[p, v0, b] -= 1
+                        planes[p, b, v0] -= 1
+                        planes[q, v0, b] += 1
+                        planes[q, b, v0] += 1
+                        head[p, v0] += 1
+                        head[p, b] += 1
+                        head[q, v0] -= 1
+                        head[q, b] -= 1
+                        if place(u, v):
+                            return True
+        return False
+
+    iu, iv = np.triu_indices(P, k=1)
+    counts = np.asarray(x)[iu, iv].astype(np.int64)
+    for idx in np.lexsort((iv, iu, -counts)):
+        u, v, c = int(iu[idx]), int(iv[idx]), int(counts[idx])
+        for _ in range(c):
+            if not place(u, v) and not swap_then_place(u, v):
+                raise ValueError(
+                    f"cannot split pair ({u}, {v}) of {x[u, v]} circuits "
+                    f"across plane budgets {budgets.tolist()}")
+    return planes
+
+
+class PlanesFitness(EnsembleFitness):
+    """Spare-plane fitness for the k-plane decomposition.
+
+    The genome is the SPARE plane's lane only; the first k-1 lanes are
+    frozen to the balanced split of the stage-A weighted optimum.  Every
+    candidate is scored across k+1 fabric states -- the full fabric plus
+    each single plane dark (`plane_state_genomes`, the staggered-rewire /
+    PlaneFailure states the scheduler actually visits) -- and all M
+    ensemble members, in ONE `ensemble_genome_makespan` call over the
+    (S*(k+1), E) float state stack: one lane per state x member.
+    Objective: worst state/member regret against the stage-A reference
+    makespans, so the spare lane is shaped to absorb whichever plane loss
+    hurts the worst member most.
+    """
+
+    def __init__(self, ensemble: DagEnsemble, base_lanes: np.ndarray,
+                 space: TopologySpace, opts: GAOptions, refs: np.ndarray):
+        super().__init__(ensemble, space, opts, "max-regret", refs)
+        self.base_lanes = np.asarray(base_lanes, dtype=np.int64) \
+            .reshape(-1, space.E)
+        self.num_planes = len(self.base_lanes) + 1
+
+    def _lane_stack(self, genomes: np.ndarray) -> np.ndarray:
+        """(S, E) spare lanes -> (S, k, E) full per-plane lane stacks."""
+        S = len(genomes)
+        base = np.broadcast_to(self.base_lanes[None],
+                               (S,) + self.base_lanes.shape)
+        return np.concatenate(
+            [base, genomes[:, None, :].astype(np.int64)], axis=1)
+
+    def state_makespans(self, genomes: np.ndarray) -> np.ndarray:
+        """(S, E) spare lanes -> (S, k+1, M) fabric-state makespans."""
+        genomes = np.asarray(genomes, dtype=np.int64).reshape(
+            -1, self.space.E)
+        S, M = len(genomes), len(self.problems)
+        k1 = self.num_planes + 1
+        states = plane_state_genomes(self._lane_stack(genomes)) \
+            .reshape(S * k1, self.space.E)
+        if self._des is not None:
+            padded, n = self._padded(states)
+            ms, feas = self._des.ensemble_genome_makespan(
+                padded, self.space.edge_u, self.space.edge_v)
+            self.batch_calls += 1
+            return np.where(feas, ms, INF)[:n].reshape(S, k1, M)
+        out = np.empty((S * k1, M))
+        for s, g in enumerate(states):
+            X = self._float_matrix(g)
+            out[s] = [simulate(p, X).makespan for p in self.problems]
+        return out.reshape(S, k1, M)
+
+    def _float_matrix(self, g: np.ndarray) -> np.ndarray:
+        """Float scatter (fractional trickle lanes break `to_matrix`)."""
+        X = np.zeros((self.space.P, self.space.P))
+        X[self.space.edge_u, self.space.edge_v] = g
+        X[self.space.edge_v, self.space.edge_u] = g
+        return X
+
+    def exact_state_makespans(self, genome: np.ndarray) -> np.ndarray:
+        """Exact (numpy DES) (k+1, M) state/member makespans of one
+        spare lane."""
+        lanes = self._lane_stack(
+            np.asarray(genome, dtype=np.int64).reshape(1, -1))
+        states = plane_state_genomes(lanes)[0]          # (k+1, E)
+        out = np.empty((len(states), len(self.problems)))
+        for s, g in enumerate(states):
+            X = self._float_matrix(g)
+            out[s] = [simulate(p, X).makespan for p in self.problems]
+        return out
+
+    def _raw_scores(self, genomes: np.ndarray) -> np.ndarray:
+        ms = self.state_makespans(genomes)              # (S, k+1, M)
+        flat = ms.reshape(len(ms), -1)
+        with np.errstate(invalid="ignore"):
+            out = (ms / self.refs).reshape(len(ms), -1).max(axis=1)
+        out[~np.isfinite(flat).all(axis=1)] = INF
+        return out
+
+
+@dataclass
+class PlanesGAResult:
+    """k-plane decomposition of one robust topology."""
+
+    planes: np.ndarray             # (k, P, P) per-plane circuit counts
+    lane_genomes: np.ndarray       # (k, E) the same, on the union pairs
+    edges: list                    # the E union pairs
+    x: np.ndarray                  # (P, P) total topology (planes.sum(0))
+    makespans: np.ndarray          # (M,) exact full-fabric member makespans
+    dark_makespans: np.ndarray     # (k, M) exact one-plane-dark makespans
+    refs: np.ndarray               # (M,) stage-A reference makespans
+    plane_port_limits: tuple       # (k, P) per-plane per-pod budgets
+    objective_value: float         # worst state/member regret
+    generations: int
+    evaluations: int
+    elapsed: float
+    history: list = field(default_factory=list)
+    feasible: bool = True
+
+    @property
+    def num_planes(self) -> int:
+        return len(self.planes)
+
+    @property
+    def worst_dark_regret(self) -> float:
+        if not len(self.dark_makespans):
+            return INF
+        return float((self.dark_makespans / self.refs).max())
+
+    @property
+    def total_ports(self) -> int:
+        return int(self.x.sum())
+
+
+def delta_planes(ensemble: DagEnsemble, opts: GAOptions | None = None,
+                 num_planes: int = 4,
+                 xbar: np.ndarray | None = None,
+                 seeds: list[np.ndarray] | None = None) -> PlanesGAResult:
+    """DELTA-Planes: decompose one robust topology across a k-plane OCS
+    fabric so any single plane can go dark (fault OR staggered rewire)
+    with bounded, pre-certified inflation.
+
+    Two structured stages over the plane-indexed genome:
+
+      1. base -- `delta_robust` (weighted objective) confined to the
+         first k-1 planes' combined port budget, then split balanced
+         across those planes (`split_across_planes`): the always-on
+         carry capacity.
+      2. spare -- a GA over the k-th plane's lane alone
+         (`TopologySpace.for_ensemble(..., port_limits=spare,
+         min_circuits=0)`), scored on the k+1 fabric states every
+         staggered transition actually visits; the spare lane is shaped
+         to absorb the worst-case member under the worst plane loss.
+
+    Exact numpy re-rank certifies the winner's full state/member matrix
+    before it is returned (same f32-noise guard as the other engines).
+    """
+    opts = opts or GAOptions()
+    if num_planes < 2:
+        raise ValueError(f"num_planes must be >= 2, got {num_planes}")
+    t_start = time.time()
+    budgets = np.asarray(ensemble.plane_port_limits(num_planes),
+                         dtype=np.int64)
+    base_budget = budgets[:-1].sum(axis=0)
+
+    base = delta_robust(ensemble, opts, objective="weighted",
+                        refs=np.ones(ensemble.num_members),
+                        port_limits=base_budget)
+    refs = np.asarray(base.makespans, dtype=np.float64)
+    if not (np.isfinite(refs) & (refs > 0)).all():
+        raise ValueError(
+            f"base stage is infeasible under the first {num_planes - 1} "
+            f"planes' budget {base_budget.tolist()}: makespans {refs}")
+    base_planes = split_across_planes(base.x, budgets[:-1])
+
+    space = TopologySpace.for_ensemble(ensemble, xbar,
+                                       port_limits=budgets[-1],
+                                       min_circuits=0)
+    # the spare lane tops up what the base left under the union Alg. 2
+    # bound (at least one extra circuit per pair stays searchable)
+    extra = ensemble_x_upper_bound(ensemble)[
+        space.edge_u, space.edge_v].astype(np.int64) \
+        - base.x[space.edge_u, space.edge_v].astype(np.int64)
+    space.xbar = np.minimum(space.xbar, np.maximum(extra, 1))
+    base_lanes = base_planes[:, space.edge_u, space.edge_v]
+    fit = PlanesFitness(ensemble, base_lanes, space, opts, refs)
+    rng = np.random.default_rng(opts.seed + 1)   # distinct from stage 1
+    t0 = time.time()
+
+    def finish(spare_g: np.ndarray, gen: int,
+               history: list[float]) -> PlanesGAResult:
+        exact = fit.exact_state_makespans(spare_g)   # (k+1, M)
+        spare_x = space.to_matrix(spare_g)
+        planes = np.concatenate([base_planes, spare_x[None]], axis=0)
+        lanes = np.concatenate([base_lanes, spare_g[None].astype(np.int64)],
+                               axis=0)
+        with np.errstate(invalid="ignore"):
+            obj = float((exact / refs).max())
+        return PlanesGAResult(
+            planes=planes, lane_genomes=lanes, edges=list(space.edges),
+            x=planes.sum(axis=0), makespans=exact[0],
+            dark_makespans=exact[1:], refs=refs,
+            plane_port_limits=tuple(map(tuple, budgets.tolist())),
+            objective_value=obj, generations=gen,
+            evaluations=fit.evaluations, elapsed=time.time() - t_start,
+            history=history, feasible=bool(np.isfinite(exact).all()))
+
+    if space.E == 0:    # no inter-pod traffic: all-dark states are free
+        return finish(np.zeros(0, dtype=np.int64), 0, [])
+
+    with span("ga.evolve", kind="delta_planes", pop=opts.pop_size,
+              edges=space.E, members=ensemble.num_members,
+              planes=num_planes):
+        best_g, _, history, gen = _evolve(space, fit, opts, rng, t0, seeds)
+
+    def worst_regret(g: np.ndarray) -> float:
+        with np.errstate(invalid="ignore"):
+            return float((fit.exact_state_makespans(g) / refs).max())
+
+    # exact numpy re-rank of the top spare lanes across the full
+    # state/member matrix (f32-noise guard)
+    return finish(_exact_rerank(fit, best_g, worst_regret, opts.port_weight,
+                                top=4), gen, history)
+
+
+# ------------------------------------------------------------ port trimming
+def _batched_trim(backend: str, n_tasks: int, pairs: int,
+                  droppable: int) -> bool:
+    """Whether a trimming sweep scores its drop-one candidates on the torch
+    DES: always for 'torch', never for 'numpy'; 'auto' only where one
+    batched call per round can win -- a wide fabric (16+ pairs) with
+    enough droppable circuits (32+) to amortize building the engine, and
+    a DAG small enough for the device path (`GAOptions.device_task_limit`).
+    On narrow pipeline DAGs the serial numpy sweep is faster."""
+    if backend not in TRIM_BACKENDS:
+        raise ValueError(f"unknown trim backend {backend!r}; "
+                         f"pick from {TRIM_BACKENDS}")
+    return backend == "torch" or (
+        backend == "auto" and n_tasks <= GAOptions.device_task_limit
+        and pairs >= 16 and droppable >= 32)
+
+
+def trim_ports_ensemble(ensemble: DagEnsemble, x: np.ndarray,
+                        rel_tol: float = 1e-6, backend: str = "auto",
+                        options: DESOptions | None = None) -> np.ndarray:
+    """Robust analog of `trim_ports`: greedy port minimization certified
+    against EVERY ensemble member -- a circuit is dropped only if no
+    member's exact (numpy DES) makespan degrades beyond `rel_tol` of its
+    value under the input topology.
+
+    Batched like the single-DAG `trim_ports`: each round scores all
+    drop-one candidates against all members in ONE
+    `EnsembleTorchDES.ensemble_genome_makespan` call (candidates x members
+    lanes of one event loop, the engine built with `options`), then
+    accepts the first fitting drop in the serial cyclic order after
+    certifying it per member with the exact numpy DES.  The float32 batch
+    is a pre-filter only; the termination backstop exact-rechecks the
+    ambiguous band (see `trim_ports`).  Circuits outside the union pairs
+    are invisible to the genome scatter, so such a topology always takes
+    the serial member sweep."""
+    problems = [DESProblem(m) for m in ensemble.members]
+    x = np.asarray(x)
+    base = np.array([simulate(p, x).makespan for p in problems])
+    if not np.isfinite(base).all():
+        return x
+    x = x.copy()
+    budgets = base * (1 + rel_tol)
+    pairs = ensemble.undirected_pairs()
+    E = len(pairs)
+    if E == 0:
+        return x
+    earr = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    eu, ev = earr[:, 0], earr[:, 1]
+
+    def exact_fits(xt: np.ndarray) -> bool:
+        return all(simulate(p, xt).makespan <= b
+                   for p, b in zip(problems, budgets))
+
+    droppable_total = int(np.maximum(x[eu, ev] - 1, 0).sum())
+    off_pair = x.copy()
+    off_pair[eu, ev] = 0
+    off_pair[ev, eu] = 0
+    des = None
+    if _batched_trim(backend, max(p.n for p in problems), E,
+                     droppable_total) and off_pair.sum() == 0:
+        des = EnsembleTorchDES(problems, options=options)
+
+    ptr = 0   # cyclic sweep pointer (matches trim_ports' pair ordering)
+    while True:
+        droppable = np.nonzero(x[eu, ev] > 1)[0]
+        k = len(droppable)
+        if k == 0:
+            break
+        g0 = x[eu, ev].astype(np.int64)
+        G = np.repeat(g0[None], k, axis=0)
+        G[np.arange(k), droppable] -= 1
+        if des is not None:
+            pad = E - k
+            batch = np.concatenate([G, np.repeat(G[:1], pad, axis=0)]) \
+                if pad > 0 else G
+            ms, feas = des.ensemble_genome_makespan(batch, eu, ev)
+            fits, near = _trim_filter_bands(ms, feas, budgets)
+            # a candidate is worth exact-checking only if EVERY member is
+            # in band: one member clearly over budget rejects it outright
+            fits = fits.all(axis=1)[:k]
+            near = near.all(axis=1)[:k]
+        else:
+            fits = np.ones(k, dtype=bool)   # certified serially below
+            near = fits
+        accepted = False
+        scan = np.argsort((droppable - ptr) % E, kind="stable")
+        for certify_band in (fits, ~fits & near) if des is not None \
+                else (fits,):
+            for i in scan:
+                if not certify_band[i]:
+                    continue
+                xt = x.copy()
+                e = droppable[i]
+                xt[eu[e], ev[e]] -= 1
+                xt[ev[e], eu[e]] -= 1
+                if exact_fits(xt):
+                    x = xt
+                    ptr = (int(e) + 1) % E
+                    accepted = True
+                    break
+            if accepted:
+                break
+        if not accepted:
+            break
+    return x
+
+
+def trim_ports(dag: CommDAG, x: np.ndarray, rel_tol: float = 1e-6,
+               backend: str = "auto",
+               options: DESOptions | None = None) -> np.ndarray:
+    """Greedy port minimization for heuristic topologies (beyond-paper
+    DELTA-Fast counterpart of Eq. 4): repeatedly drop the circuit whose
+    removal leaves the DES makespan unchanged, exploiting the temporal
+    slack of non-critical tasks.
+
+    Batched: each round scores *all* drop-one candidates from the current
+    topology in a single `TorchDES.batch_makespan` call (padded to a fixed
+    shape; the engine built with `options`), then accepts the first
+    fitting drop in the serial cyclic sweep order after certifying it
+    against the exact numpy DES.  The float32 batch is only a pre-filter
+    (with a conservative `_TRIM_FILTER_SLACK` margin): every accept is
+    numpy-certified, so the budget is never violated, and before
+    terminating the sweep exact-rechecks the batched scores' ambiguous
+    band -- candidates the filter rejected by less than
+    `_TRIM_BACKSTOP_BAND`, or flagged infeasible by the f32 engine: the
+    only ones a bounded float32 DES error could have misjudged.  A float32
+    false negative mid-round can at most reorder accepts relative to the
+    serial sweep; on the tested workloads the results are identical.
+    """
+    problem = DESProblem(dag)
+    base = simulate(problem, np.asarray(x)).makespan
+    if not np.isfinite(base):
+        return x
+    x = np.asarray(x).copy()
+    budget = base * (1 + rel_tol)
+    pairs = dag.undirected_pairs()
+    E = len(pairs)
+    if E == 0:
+        return x
+    earr = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    eu, ev = earr[:, 0], earr[:, 1]
+    droppable_total = int(np.maximum(x[eu, ev] - 1, 0).sum())
+    des = TorchDES(problem, options=options) \
+        if _batched_trim(backend, problem.n, E, droppable_total) else None
+
+    ptr = 0   # cyclic sweep pointer (matches the serial pair ordering)
+    while True:
+        droppable = np.nonzero(x[eu, ev] > 1)[0]
+        k = len(droppable)
+        if k == 0:
+            break
+        xs = np.repeat(x[None], k, axis=0)
+        rows = np.arange(k)
+        xs[rows, eu[droppable], ev[droppable]] -= 1
+        xs[rows, ev[droppable], eu[droppable]] -= 1
+        if des is not None:
+            pad = E - k
+            batch = np.concatenate([xs, np.repeat(xs[:1], pad, axis=0)]) \
+                if pad else xs
+            ms, feas = des.batch_makespan(batch)
+            # float32 filter with slack; every accept is numpy-certified
+            fits, near = _trim_filter_bands(ms, feas, budget)
+            fits, near = fits[:k], near[:k]
+        else:
+            fits = np.ones(k, dtype=bool)   # certified serially below
+            near = fits
+        accepted = False
+        scan = np.argsort((droppable - ptr) % E, kind="stable")
+        # first pass: filter-approved candidates; termination backstop:
+        # the batched scores' ambiguous band (~fits & near), the only
+        # candidates a bounded f32 DES error could have misjudged
+        for certify_band in ((fits, ~fits & near) if des is not None
+                             else (fits,)):
+            for i in scan:
+                if not certify_band[i]:
+                    continue
+                if simulate(problem, xs[i]).makespan <= budget:
+                    x = xs[i]
+                    ptr = (int(droppable[i]) + 1) % E
+                    accepted = True
+                    break
+            if accepted:
+                break
+        if not accepted:
+            break
+    return x
+
+
+def exhaustive_search(dag: CommDAG, limit: int = 200000
+                      ) -> tuple[np.ndarray, float, int]:
+    """Exact topology search by enumeration (tests / tiny instances)."""
+    space = TopologySpace(dag)
+    problem = DESProblem(dag)
+    ranges = [range(1, int(b) + 1) for b in space.xbar]
+    total = int(np.prod([len(r) for r in ranges]))
+    if total > limit:
+        raise ValueError(f"{total} combinations exceed limit {limit}")
+    best = (INF, None)
+    count = 0
+    for combo in itertools.product(*ranges):
+        g = np.asarray(combo, dtype=np.int64)
+        if not space.is_feasible(g):
+            continue
+        count += 1
+        ms = simulate(problem, space.to_matrix(g)).makespan
+        if ms < best[0]:
+            best = (ms, g)
+    if best[1] is None:
+        raise RuntimeError("no feasible topology")
+    return space.to_matrix(best[1]), float(best[0]), count

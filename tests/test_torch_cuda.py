@@ -18,7 +18,12 @@ between the fused and the per-round DES paths (both float32).  The
 member-axis filling launch is bit-equal to its plain version and, member
 by member, to single-problem launches (each block reads its lane's
 member, nothing else changes); the ensemble engine on the card is
-bit-equal to its plain path and within rel 5e-5 of the numpy DES."""
+bit-equal to its plain path and within rel 5e-5 of the numpy DES.  The
+fleet's seams on the card: the plane-state lanes of the spare-plane
+fitness within rel 5e-5 of the numpy DES and bit-equal to the plain path;
+`waterfill_grants` (one `fill_matvec` launch per round) equal to its CPU
+run; `Tenant.des()` a cache miss, then a hit; a gpt-7b fleet the same
+topologies on the card as on the CPU."""
 import dataclasses
 import os
 import subprocess
@@ -34,7 +39,8 @@ from repro_torch.configs import PAPER_WORKLOADS, make_job
 from repro_torch.core.dag import VIRTUAL
 from repro_torch.core.des import DESProblem, simulate
 from repro_torch.core.des_torch import DESOptions, EnsembleTorchDES, TorchDES
-from repro_torch.core.ga import GAOptions, delta_fast
+from repro_torch.core.ga import (GAOptions, PlanesFitness, TopologySpace,
+                                 delta_fast)
 from repro_torch.core.pruning import (cal_task_time_windows, dep_weights,
                                       estimate_t_up)
 from repro_torch.core.schedule import build_comm_dag
@@ -566,3 +572,118 @@ def test_ensemble_engine_on_card(cuda, dag3):
     np.testing.assert_array_equal(single[0][:, 0], ms_t)
     np.testing.assert_array_equal(single[1][:, 0], feas_t)
 
+
+
+def test_plane_state_lanes_on_card(cuda, dag3):
+    """The spare-plane fitness on the card: (S x (k+1)) plane-state lanes
+    of `EnsembleTorchDES` in one batch, one fill_maxmin launch per trip,
+    bit-equal to the plain path and within rel 5e-5 of the numpy DES on
+    each state's float topology."""
+    from repro_torch.core.dag import DagEnsemble
+    ens = DagEnsemble.singleton(dag3)
+    space = TopologySpace.for_ensemble(ens, port_limits=np.full(4, 8),
+                                       min_circuits=0)
+    x1 = np.zeros((4, 4), dtype=np.int64)
+    for i, j in dag3.undirected_pairs():
+        x1[i, j] = x1[j, i] = 1
+    base = np.stack([space.genome_of(x1)] * 3)
+    genomes = np.random.default_rng(8).integers(0, 3, size=(6, space.E))
+    opts = dict(pop_size=6, seed=0)
+    card = PlanesFitness(ens, base, space, GAOptions(**opts), np.ones(1))
+    plain = PlanesFitness(ens, base, space, GAOptions(
+        **opts, des_options=DESOptions(backend="ref")), np.ones(1))
+    assert card._des.backend == "cuda"
+    c0 = _counts()
+    got = card.state_makespans(genomes)
+    c1 = _counts()
+    assert c1[1] - c0[1] == c1[2] - c0[2] > 0      # one launch per trip
+    assert got.shape == (6, 5, 1) and card.batch_calls == 1
+    np.testing.assert_array_equal(got, plain.state_makespans(genomes))
+    for g, row in zip(genomes, got):
+        np.testing.assert_allclose(row, card.exact_state_makespans(g),
+                                   rtol=DES_RTOL)
+
+
+def test_waterfill_grants_on_card_match_cpu(cuda):
+    """`waterfill_grants` on the card: one `fill_matvec` launch per round
+    it runs, and the CPU run's grants."""
+    from repro_torch.fleet import waterfill_grants
+    rng = np.random.default_rng(3)
+    rounds = REGISTRY.counter("fleet_waterfill_rounds_total")
+    for t, p in ((2, 8), (3, 4), (4, 16)):
+        demands = rng.integers(0, 12, size=(t, p))
+        supply = rng.integers(1, 16, size=p)
+        r0, l0 = rounds.value(), waterfill.launches
+        got = waterfill_grants(demands, supply)
+        torch.cuda.synchronize()
+        ran = rounds.value() - r0
+        assert ran > 0 and waterfill.launches - l0 == ran
+        np.testing.assert_array_equal(
+            got, waterfill_grants(demands, supply, device="cpu"))
+
+
+def test_tenant_des_on_card_is_a_cache_miss_then_a_hit(cuda, dag3):
+    """`Tenant.des()` builds its realloc engine on the card with
+    `warn_on_miss`: the first tenant of a DAG shape opens a bucket, the
+    next one of the same shape lands in it."""
+    from repro_torch.core.des_torch import des_cache_clear, des_cache_stats
+    from repro_torch.fleet import Tenant
+    des_cache_clear()
+
+    def tenant(name):
+        return Tenant(name=name, job=None, pods=(0, 1, 2, 3),
+                      reverse_stages=False, port_min=False, dag=dag3)
+    first = tenant("a").des()
+    assert first.backend == "cuda" and first.options.warn_on_miss
+    assert des_cache_stats() == {"hits": 0, "misses": 1, "evictions": 0,
+                                 "entries": 1}
+    second = tenant("b").des()
+    assert second.pad == first.pad and second.backend == "cuda"
+    assert des_cache_stats() == {"hits": 1, "misses": 1, "evictions": 0,
+                                 "entries": 1}
+
+
+def test_fleet_planner_without_cuda_raises(cuda, monkeypatch):
+    """A fleet planner with no device named refuses to plan where no CUDA
+    device is available, and so does plan(kind="fleet")."""
+    from repro_torch.core.api import PlanRequest, plan
+    from repro_torch.fleet import FleetPlanner, FleetSpec
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        FleetPlanner(FleetSpec(num_pods=4, ports_per_pod=8))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        plan(PlanRequest(fleet_requests=[("a", dag3_job())]))
+
+
+def dag3_job() -> JobSpec:
+    ref = gpt7b_job(3)
+    return JobSpec(**{f.name: getattr(ref, f.name)
+                      for f in dataclasses.fields(ref) if f.init})
+
+
+def test_fleet_same_on_card_and_cpu(cuda):
+    """The Fig. 10 pair at gpt-7b (4 pods, 4 microbatches) through
+    `fleet_optimize` on the card and on the CPU: the same topology for
+    every tenant, `fill_matvec` launched once per waterfill round."""
+    from repro_torch.core.api import fleet_optimize
+    ref = gpt7b_job(4)
+    job = JobSpec(**{f.name: getattr(ref, f.name)
+                     for f in dataclasses.fields(ref) if f.init})
+    reqs = [("model", job, {"port_min": True}),
+            ("model_t", job, {"reverse_stages": True})]
+    kw = dict(pop_size=12, max_generations=6, patience=10**9,
+              time_limit=1e9, seed=0)
+    rounds = REGISTRY.counter("fleet_waterfill_rounds_total")
+    r0, l0 = rounds.value(), waterfill.launches
+    card, rep = fleet_optimize(reqs, ports_per_pod=8, nic_gbps=100.0,
+                               ga_options=GAOptions(**kw))
+    torch.cuda.synchronize()
+    assert waterfill.launches - l0 == rounds.value() - r0 > 0
+    cpu, _ = fleet_optimize(reqs, ports_per_pod=8, nic_gbps=100.0,
+                            ga_options=GAOptions(
+                                **kw, des_options=DESOptions(device="cpu")))
+    for name in ("model", "model_t"):
+        np.testing.assert_array_equal(card.tenants[name].plan.x,
+                                      cpu.tenants[name].plan.x)
+    assert card.ledger.snapshot() == cpu.ledger.snapshot()
+    assert rep["realloc"]["granted_ports"] > 0

@@ -6,6 +6,7 @@ Tolerance: the GA's final makespan comes from the exact numpy DES on both
 sides, so equal topologies give equal makespans; rel 5e-5 is the float32
 engine bound of tests/test_des_jax.py, for a re-rank that sees slightly
 different float32 scores."""
+import ast
 import os
 import subprocess
 import sys
@@ -20,7 +21,8 @@ from repro.core import ga as jax_ga
 from repro.core.des_jax import DESOptions as JaxDESOptions
 from repro.core.schedule import build_comm_dag as jax_build_comm_dag
 from repro_torch.core.api import (METHODS, ROBUST_METHODS, FailureModel,
-                                  PlanRequest, compare, plan)
+                                  FleetPlanResult, PlanRequest, compare,
+                                  plan)
 from repro_torch.core.dag import DagEnsemble
 from repro_torch.core.des_torch import DESOptions
 from repro_torch.core.ga import GAOptions, delta_fast
@@ -93,7 +95,8 @@ def test_plan_without_cuda_raises(dag4, monkeypatch):
     requests += [PlanRequest(ensemble=DagEnsemble([dag4]), method=m)
                  for m in ROBUST_METHODS]
     requests += [PlanRequest(dag=dag4, failure=FailureModel()),
-                 PlanRequest(dag=dag4, failure=FailureModel(resilient=True))]
+                 PlanRequest(dag=dag4, failure=FailureModel(resilient=True)),
+                 PlanRequest(fleet_requests=[("a", port_job(2))])]
     for req in requests:
         with pytest.raises(RuntimeError, match="CUDA device"):
             plan(req)
@@ -102,13 +105,15 @@ def test_plan_without_cuda_raises(dag4, monkeypatch):
 
 
 def test_later_slices_raise_not_implemented(dag4):
-    """Only the fleet kind waits for a later slice; an unknown method is
-    still refused."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        plan(PlanRequest(fleet_requests=[("a", port_job(2))]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        plan(PlanRequest(fleet_requests=[("a", port_job(2))],
-                         des_options=CPU))
+    """No kind waits for a later slice any more: the fleet kind plans on
+    the named device and returns a `FleetPlanResult`; an unknown method
+    is still refused."""
+    res = plan(PlanRequest(fleet_requests=[("a", port_job(2))],
+                           ga_options=GAOptions(**_small()),
+                           des_options=CPU))
+    assert isinstance(res, FleetPlanResult)
+    assert set(res.report["tenants"]) == {"a"}
+    assert res.planner.device == torch.device("cpu")
     with pytest.raises(ValueError, match="unknown method"):
         plan(PlanRequest(dag=dag4, method="nope", des_options=CPU))
     with pytest.raises(ValueError, match="unknown method"):
@@ -138,3 +143,26 @@ print("ok", len(names))
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_port_sources_import_no_jax_and_no_reference_at_any_depth():
+    """Every import statement of every source file of the port, at any
+    depth (a function body's too, which importing a module never runs),
+    names neither jax nor the JAX package."""
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    assert len(files) >= 30, files
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                if root in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(REPO)}:{node.lineno} "
+                               f"{name}")
+    assert not bad, bad
