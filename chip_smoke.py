@@ -14,7 +14,8 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               (the shape and dtype sweeps of tests/test_kernels.py and the
               shape its path gives it at full width: bit equality for
               tclosure and maxplus; the fused filling kernel over a sweep
-              and on megatron-462b's CSR at 48 lanes, with equal rounds),
+              and on the CSRs of megatron-462b and of the widest registry
+              DAG, jamba-1.5-large-398b, at 48 lanes, with equal rounds),
               with its time, the plain version's, one PyTorch library
               call's and the card's bound;
   4. DES      the torch DES at the full width of megatron-462b (paper
@@ -59,8 +60,10 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               worse than the same run's delta-fast;
  11. resilient plan() of gpt-7b with a zero MILP budget: the fallback
               chain lands on its GA stage, which runs on the card;
- 12. trim     trim_ports on [plan]'s megatron-462b topology and
-              trim_ports_ensemble on [robust]'s winner, on the batched
+ 12. trim     trim_ports on [plan]'s megatron-462b topology (its two
+              pod pairs of most circuits first set to the 8 circuits
+              where the full sweep leaves them) and trim_ports_ensemble
+              on [robust]'s ensemble from that result, on the batched
               path on the card (every drop-one candidate of a round in
               one batch, one fill_maxmin launch per trip): ports before
               and after, rounds, and every accepted drop certified by the
@@ -78,7 +81,26 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               the engine-cache counts, the co-tenant's makespan against
               the numpy DES; fill_matvec at the fleet's shape against its
               plain version; the pair at gpt-7b on the card and on the
-              CPU (the same topologies).
+              CPU (the same topologies);
+ 15. cli      the control-plane CLI (python -m repro_torch.launch.topo_plan)
+              in process at the full configured width of two registry
+              architectures that the GA runs on the card
+              (granite-moe-1b-a400m, MoE; llama-3.2-vision-11b,
+              vision-language) with its default methods: fill_maxmin once
+              per trip, delta-fast no worse than the best baseline, the
+              written topology within the port limits, every method's
+              topology scored on the card against the numpy DES, and
+              fill_maxmin at each DAG's CSR against its plain version;
+              the same methods on grok-1-314b (MoE, 2,192 tasks, a real
+              GA search) with the GA forced onto the card for 3
+              generations, likewise checked; 48 random topologies of
+              jamba-1.5-large-398b (2,898 tasks, the widest registry DAG)
+              as one batch on the card against the numpy DES;
+ 16. examples the seven planner and fleet examples (quickstart,
+              plan_topology at gpt-7b, trace_plan, fleet_realloc,
+              chaos_fleet, control_plane, planes_transition) on the
+              card, each returning 0, with fill_maxmin once per trip and
+              fill_matvec once per waterfill round.
 
 The kernels phase also holds fill_maxmin's member axis against its plain
 version: a sweep of 1-3 members, and the two members of each [robust]
@@ -136,23 +158,43 @@ ROBUST_SEQ_LENS = (4096, 16384)   # the [robust] ensemble's two members
 ROBUST_MICROBATCHES = (128, 64)
 MEMBER_SWEEP = (257, 40, 600, 0.8)   # (N, C, E, density) of each member
 ROBUST_GENERATIONS = 3
-# depth cuts that keep the script inside its time limit with the fleet's
-# phases added (PERF.md section 4): the [robust] microbatch pair's
-# generations, and every SINGLES_STRIDE-th genome of [des]'s batch
-# simulated alone
+# depth cuts that keep the script inside its time limit (PERF.md section
+# 4): the [robust] microbatch pair's generations, every
+# SINGLES_STRIDE-th genome of [des]'s batch simulated alone, the
+# [planes] stages' generations and the [fleet] mixtral-8x22b tenants'
 ROBUST_MB_GENERATIONS = 2
-SINGLES_STRIDE = 4
+SINGLES_STRIDE = 8
 PLANES = 4              # OCS planes of the [planes] decomposition
+PLANES_GENERATIONS = 2
 FLEET_GENERATIONS = 3   # GA depth of each [fleet] tenant at full width
+FLEET_MIXTRAL_GENERATIONS = 1
 # the megatron-177b Fig. 10 pair's waterfill: W (P, T*P) @ (T*P, 2) with
 # P = 24 pods and T = 1 bottlenecked tenant
 FLEET_MATVEC = (24, 24, 2)
-# [trim]'s ensemble sweep starts this many circuits above the single-DAG
-# sweep's result on each of the two pod pairs of most volume
-TRIM_ENSEMBLE_EXTRA = 2
+# [trim]'s single-DAG sweep starts from [plan]'s topology (ROUND_PATH_PORTS
+# ports) with the TRIM_HEAVY pod pairs of most circuits in it set to
+# TRIM_FLOOR circuits, where the full sweep from that topology leaves
+# them (122 -> 74 ports in 25 rounds, 16 of its 24 drops on these two
+# pairs, both left at 8); its ensemble sweep starts TRIM_ENSEMBLE_EXTRA
+# circuits above the single-DAG sweep's result on each of the two pod
+# pairs of most volume
+TRIM_HEAVY, TRIM_FLOOR = 2, 8
+TRIM_ENSEMBLE_EXTRA = 1
 # plan() on megatron-462b (48 genomes, 5 generations, seed 0) on the
 # per-round kernel path, as PERF.md records it
 ROUND_PATH_PORTS, ROUND_PATH_MAKESPAN = 122, 93.60538748389672
+# [cli]: two registry architectures that the GA's `auto` backend sends to
+# the card (under its 1,200-task limit), the CLI's --time-limit for each
+# (its GA takes half) and its default methods; an MoE architecture above
+# that limit whose GA search is real (three pod pairs of 1-32 circuits),
+# run with the GA forced onto the card for a few generations; and the
+# widest registry DAG, run as one batch
+CLI_ARCHS = ("granite-moe-1b-a400m", "llama-3.2-vision-11b")
+CLI_TIME_LIMIT = 20.0
+CLI_METHODS = ("prop-alloc", "sqrt-alloc", "iter-halve", "delta-fast")
+CLI_GA_ARCH = "grok-1-314b"
+CLI_GA_GENERATIONS = 3
+JAMBA = "jamba-1.5-large-398b"
 
 
 def fail(msg: str) -> None:
@@ -385,10 +427,11 @@ def _check_maxmin(name: str, args) -> tuple[float, float, list]:
     return a, r, rounds.tolist()
 
 
-def kernel_maxmin(dag) -> dict:
-    """The fused filling kernel against its plain version over the sweep
-    and on megatron-462b's CSR at 48 lanes of random active sets and
-    caps, with its time and bound."""
+def _maxmin_at_dag(tag: str, name: str, dag, rng):
+    """fill_maxmin against its plain version on `dag`'s padded CSR at
+    LANES lanes of random active sets and caps, with its time, the plain
+    version's, the bound and the device time per call: (max abs err, ms,
+    plain ms, bound ms, what binds)."""
     import numpy as np
     import torch
     from repro_torch.core.des import DESProblem
@@ -396,20 +439,7 @@ def kernel_maxmin(dag) -> dict:
     from repro_torch.kernels import waterfill
     from repro_torch.kernels.ref import fill_maxmin_ref
     dev = torch.device("cuda")
-    rng = np.random.default_rng(3)
-    worst = 0.0
-    for shape in MAXMIN_SWEEP:
-        a, _, _ = _check_maxmin(f"fill_maxmin {shape}",
-                                _maxmin_instance(rng, *shape, dev))
-        worst = max(worst, a)
-    log(f"[kernels] fill_maxmin sweep {len(MAXMIN_SWEEP)} shapes (S, N, C, "
-        f"E, density): bit-equal to the plain version (max abs err "
-        f"{worst:.3e}, rtol/atol {KERNEL_RTOL:g}), rounds equal, "
-        f"bit-identical reruns")
-
-    # the main path's shape: megatron-462b's padded CSR, 48 lanes
-    des = TorchDES(DESProblem(dag))
-    a = des.arrays
+    a = TorchDES(DESProblem(dag)).arrays
     con_ptr, ent_task, ent_w = _incidence_csr(a)
     S, N, C, E = LANES, a.n, a.num_cons, ent_task.shape[1]
     real = a.task_valid[0].cpu().numpy().copy()
@@ -419,9 +449,9 @@ def kernel_maxmin(dag) -> dict:
                            np.ones((S, C - a.num_link_cons))], 1)
     args = [con_ptr, ent_task, ent_w, torch.from_numpy(active).to(dev),
             torch.from_numpy(caps.astype(np.float32)).to(dev), a.flows]
-    max_abs, max_rel, rounds = _check_maxmin("fill_maxmin main shape", args)
-    log(f"[kernels] fill_maxmin S={S} N={N} C={C} E={E} (megatron-462b CSR,"
-        f" max {int((con_ptr[0, 1:] - con_ptr[0, :-1]).max())} entries per "
+    max_abs, max_rel, rounds = _check_maxmin(f"fill_maxmin {name}", args)
+    log(f"[{tag}] fill_maxmin S={S} N={N} C={C} E={E} ({name} CSR, max "
+        f"{int((con_ptr[0, 1:] - con_ptr[0, :-1]).max())} entries per "
         f"constraint, {waterfill.maxmin_smem_bytes(N, C, E)} bytes of "
         f"shared memory per block): bit-equal to the plain version (max abs "
         f"err {max_abs:.3e}, max rel err {max_rel:.3e}); rounds per lane "
@@ -436,14 +466,40 @@ def kernel_maxmin(dag) -> dict:
     b_ms, b_by = bound_ms(
         4.0 * (C + 1) + 8.0 * E + S * N + 4.0 * S * C + 4.0 * N
         + 4.0 * S * N + 4.0 * S, sum(rounds) * (4.0 * E + 3.0 * C + N))
-    log(f"[kernels] fill_maxmin S={S} N={N} C={C} E={E}: kernel {ms:.5f} ms"
+    log(f"[{tag}] fill_maxmin S={S} N={N} C={C} E={E}: kernel {ms:.5f} ms"
         f"/call, plain {plain_ms:.5f}, no library call, bound {b_ms:.6f} "
         f"ms ({b_by})")
-    dev_us = {name: _device_us_per_call(fn, iters) for name, fn, iters in (
+    dev_us = {k: _device_us_per_call(fn, iters) for k, fn, iters in (
         ("kernel", lambda: waterfill.fill_maxmin(*args), 50),
         ("plain", lambda: fill_maxmin_ref(*args), 5))}
-    log("[kernels] device time per call (profiler): " + ", ".join(
+    log(f"[{tag}] device time per call (profiler): " + ", ".join(
         f"{k} {v}" for k, v in dev_us.items()))
+    return max_abs, ms, plain_ms, b_ms, b_by
+
+
+def kernel_maxmin(dag, widest) -> dict:
+    """The fused filling kernel against its plain version over the sweep
+    and on megatron-462b's CSR at 48 lanes of random active sets and
+    caps, with its time and bound; then likewise on `widest`, the widest
+    registry DAG's CSR (90,916 bytes of shared memory per block)."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    worst = 0.0
+    for shape in MAXMIN_SWEEP:
+        a, _, _ = _check_maxmin(f"fill_maxmin {shape}",
+                                _maxmin_instance(rng, *shape, dev))
+        worst = max(worst, a)
+    log(f"[kernels] fill_maxmin sweep {len(MAXMIN_SWEEP)} shapes (S, N, C, "
+        f"E, density): bit-equal to the plain version (max abs err "
+        f"{worst:.3e}, rtol/atol {KERNEL_RTOL:g}), rounds equal, "
+        f"bit-identical reruns")
+
+    # the main path's shape: megatron-462b's padded CSR, 48 lanes
+    max_abs, ms, plain_ms, b_ms, b_by = _maxmin_at_dag(
+        "kernels", "megatron-462b", dag, rng)
+    _maxmin_at_dag("kernels", JAMBA, widest, rng)
     return {"name": "waterfill.fill_maxmin", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/waterfill.cu",
             "replaces": "src/repro/kernels/waterfill.py:47",
@@ -798,15 +854,10 @@ def _busy_s(prof) -> float:
                       if ev.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def _device_busy_s(fn) -> float:
-    """Seconds the device spent in kernels and copies during one call of
-    `fn`, from a torch.profiler trace."""
-    return _busy_s(_profile(fn))
-
-
 def _device_only_busy_s(fn) -> float:
-    """`_device_busy_s` from a trace of the device alone: no host-side
-    events, so the traced call costs little more than the call itself."""
+    """Seconds the device spent in kernels and copies during one call of
+    `fn`, from a trace of the device alone: no host-side events, so the
+    traced call costs little more than the call itself."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -833,8 +884,17 @@ def _host_syncs(fn) -> int:
 
 
 def _device_us_per_call(fn, iters: int = 50) -> str:
-    busy_s = _device_busy_s(lambda: [fn() for _ in range(iters)])
-    return f"{busy_s * 1e6 / iters:.3f} us" if busy_s else "not measured"
+    """Device microseconds per call of `fn` from a trace of `iters` calls,
+    or "not measured" when the trace holds fewer device events than calls
+    (every call launches at least one kernel, so the trace lost some)."""
+    import torch
+    prof = _profile(lambda: [fn() for _ in range(iters)])
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if len(events) < iters:
+        return "not measured"
+    busy_s = 1e-6 * sum(ev.device_time_total for ev in events)
+    return f"{busy_s * 1e6 / iters:.3f} us"
 
 
 def _device_us_by_kernel(fn, iters: int = 50) -> dict[str, float]:
@@ -1023,10 +1083,17 @@ def phase_des(dag) -> None:
         wall = time.perf_counter() - t0
         c = _counts()
         _check_path(name, c)
+        # the first fused turn's rerun is traced on the host and the
+        # device (the trip's host ops below); the others' on the device
+        # alone, whose trace costs far less to record and read
+        first_fused = name == "cuda" and name not in results
         t0 = time.perf_counter()
-        prof = _profile(batch)
-        prof_wall = time.perf_counter() - t0
-        busy = _busy_s(prof)
+        if first_fused:
+            prof = _profile(batch)
+            prof_wall = time.perf_counter() - t0
+            busy = _busy_s(prof)
+        else:
+            busy = _device_only_busy_s(batch)
         syncs = _host_syncs(batch)
         trips = c["trips"]
         log(f"[des] turn {turn} {name}: 48-genome batch {wall:.4f} s wall "
@@ -1036,7 +1103,7 @@ def phase_des(dag) -> None:
             + f"; {syncs} host syncs in {trips:.0f} trips, "
             f"{syncs / trips:.3f} per trip; {c['rounds']:.0f} rounds, "
             f"{c['maxmin']} fill_maxmin, {c['launches']} fill_round launches")
-        if name == "cuda" and name not in results:
+        if first_fused:
             _trip_ops(prof, trips, prof_wall)
         results.setdefault(name, []).append((ms_b, feas_b))
     (ms_f, feas_f), (ms_r, feas_r) = results["cuda"][0], \
@@ -1657,8 +1724,30 @@ def _sweep(tag: str, run, problems, x0):
     return out
 
 
+def _floored_start(dag, x):
+    """[plan]'s topology with its TRIM_HEAVY pod pairs of most circuits at
+    TRIM_FLOOR, where the sweep from that topology itself leaves them: a
+    cut of the sweep's depth.  The floor was read from the full sweep of
+    [plan]'s 122-port topology, so any other x fails here."""
+    if int(x.sum()) != ROUND_PATH_PORTS:
+        fail(f"trim: [plan]'s x has {int(x.sum())} ports; TRIM_FLOOR was "
+             f"measured from its {ROUND_PATH_PORTS}-port topology")
+    pairs = sorted(dag.undirected_pairs(),
+                   key=lambda p: (-int(x[p]), p))[:TRIM_HEAVY]
+    start = x.copy()
+    for i, j in pairs:
+        start[i, j] = start[j, i] = min(int(x[i, j]), TRIM_FLOOR)
+    per_pair = {p: (int(x[p]), int(start[p]))
+                for p in dag.undirected_pairs()}
+    log(f"[trim] start: [plan]'s {int(x.sum())} ports with its {pairs} "
+        f"pairs of most circuits at {TRIM_FLOOR}, {int(start.sum())} ports; "
+        f"circuits per pair ([plan], start) {per_pair}")
+    return start
+
+
 def phase_trim(dag, x, ens) -> None:
-    """trim_ports on [plan]'s megatron-462b topology, then
+    """trim_ports on [plan]'s megatron-462b topology with its two
+    heaviest pairs at their floor (`_floored_start`), then
     trim_ports_ensemble on [robust]'s sequence-length ensemble, both on
     the batched path on the card (every drop-one candidate of a round in
     one batch).  The ensemble sweep starts TRIM_ENSEMBLE_EXTRA circuits
@@ -1670,7 +1759,8 @@ def phase_trim(dag, x, ens) -> None:
 
     t_phase = time.perf_counter()
     trimmed = _sweep("trim_ports", lambda x0: trim_ports(
-        dag, x0, backend="torch"), [DESProblem(dag)], x)
+        dag, x0, backend="torch"), [DESProblem(dag)],
+        _floored_start(dag, x))
     vol = sum(m.traffic_matrix() for m in ens.members)
     pairs = sorted(ens.undirected_pairs(),
                    key=lambda p: (-(vol[p] + vol[p[::-1]]), p))[:2]
@@ -1686,10 +1776,11 @@ def phase_trim(dag, x, ens) -> None:
 
 
 def phase_planes(dag) -> None:
-    """delta_planes on megatron-462b with 4 planes, LANES genomes and 3
-    generations (LANES x 5 fabric states = 240 lanes per spare-stage
-    batch): the winner's per-plane split and every one-plane-dark state
-    against the numpy DES, s/generation and the idle share of a batch."""
+    """delta_planes on megatron-462b with 4 planes, LANES genomes and
+    PLANES_GENERATIONS per stage (LANES x 5 fabric states = 240 lanes per
+    spare-stage batch): the winner's per-plane split and every
+    one-plane-dark state against the numpy DES, s/generation and the idle
+    share of a batch."""
     import numpy as np
     import torch
     from repro_torch import obs
@@ -1706,7 +1797,7 @@ def phase_planes(dag) -> None:
     _reset_counts()             # this path's counts start at 0
     t0 = time.perf_counter()
     with obs.enabled():
-        res = delta_planes(ens, _robust_ga(ROBUST_GENERATIONS),
+        res = delta_planes(ens, _robust_ga(PLANES_GENERATIONS),
                            num_planes=PLANES)
     wall = time.perf_counter() - t0
     c = _counts()
@@ -1724,7 +1815,7 @@ def phase_planes(dag) -> None:
     budgets = np.asarray(res.plane_port_limits)
     usage = np.stack([np.triu(p, 1).sum(0) + np.triu(p, 1).sum(1)
                       for p in res.planes])
-    if gens != ROBUST_GENERATIONS or not res.feasible \
+    if gens != PLANES_GENERATIONS or not res.feasible \
             or not np.array_equal(res.planes.sum(axis=0), res.x) \
             or (usage > budgets).any():
         fail(f"planes: generations {gens}, feasible {res.feasible}, "
@@ -1906,7 +1997,8 @@ def phase_fleet() -> dict:
     t_phase = time.perf_counter()
     launches, (w, rhs) = _fleet_run("megatron-177b", 48, FLEET_GENERATIONS,
                                     realloc=True)
-    _fleet_run("mixtral-8x22b", 64, FLEET_GENERATIONS, realloc=False)
+    _fleet_run("mixtral-8x22b", 64, FLEET_MIXTRAL_GENERATIONS,
+               realloc=False)
 
     # fill_matvec at the fleet's shape: W (P, T*P) @ rhs (T*P, 2)
     got = waterfill.fill_matvec(w, rhs)
@@ -1953,35 +2045,275 @@ def phase_fleet() -> dict:
             "library_ms": library_ms}
 
 
+def _card_vs_numpy(tag: str, name: str, dag, xs, picked) -> list[float]:
+    """The topologies `xs` of `dag` as one batch on the card (an engine of
+    their own, the counts at 0 before it: one fill_maxmin launch per trip)
+    against the numpy DES for the lanes `picked`, at DES_RTOL.  Returns the
+    card's makespans of those lanes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.des import DESProblem, simulate
+    from repro_torch.core.des_torch import TorchDES
+
+    prob = DESProblem(dag)
+    des = TorchDES(prob)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms, feas = des.batch_makespan(np.stack(xs))
+    wall = time.perf_counter() - t0
+    c = _counts()
+    want = [simulate(prob, xs[i]).makespan for i in picked]
+    got = [float(ms[i]) for i in picked]
+    rel = [abs(g - w) / w for g, w in zip(got, want)]
+    log(f"[{tag}] {name}: {len(xs)} topologies as one batch on the card "
+        f"(padded to {tuple(des.pad)}), {wall:.2f} s; lanes {list(picked)}: "
+        f"card {got}, numpy {want}, rel {rel}")
+    _trips_and_launches(tag, c, 1)
+    if not all(feas[i] for i in picked) \
+            or not all(r <= DES_RTOL for r in rel):
+        fail(f"{tag} {name}: feasible {feas.tolist()}, rel to the numpy DES "
+             f"{rel}")
+    return got
+
+
+def _no_worse(tag: str, name: str, results) -> None:
+    """delta-fast feasible with an NCT no worse than the best baseline's."""
+    fast = results.get("delta-fast")
+    baseline = min(r.nct for m, r in results.items() if m != "delta-fast")
+    if fast is None or not fast.feasible \
+            or not fast.nct <= baseline * (1 + 1e-9):
+        fail(f"{tag} {name}: delta-fast {fast}, best baseline NCT "
+             f"{baseline}")
+
+
+def _cli_run(arch: str, out: Path) -> None:
+    """The control-plane CLI in process on the card at `arch`'s full
+    configured width with its default methods, the counts at 0 before
+    it: fill_maxmin once per trip of the delta-fast GA, delta-fast no
+    worse than the best baseline (at granite, whose port limits leave the
+    GA one genome, delta-fast is prop-alloc's topology and this holds
+    trivially), the --out topology within the port limits; then every
+    method's topology scored on the card against the numpy DES (the
+    CLI's printed makespans are the numpy DES's own), and fill_maxmin at
+    this DAG's CSR against its plain version."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.configs import ALL_ARCHS, make_job
+    from repro_torch.core.schedule import build_comm_dag
+    from repro_torch.launch import topo_plan
+
+    obs.TRACER.clear()
+    _reset_counts()             # this path's counts start at 0
+    t0 = time.perf_counter()
+    with obs.enabled():
+        results = topo_plan.main(["--arch", arch, "--time-limit",
+                                  repr(CLI_TIME_LIMIT), "--out", str(out)])
+    wall = time.perf_counter() - t0
+    c = _counts()
+    spans = obs.TRACER.summary()
+    batches = spans.get("ga.fitness_batch", {}).get("count", 0)
+    dag = build_comm_dag(make_job(ALL_ARCHS[arch], seq_len=4096), 400.0)
+    payload = json.loads(out.read_text())
+    x = np.asarray(payload["topology"])
+    limits = np.asarray(dag.cluster.port_limits)
+    log(f"[cli] {arch}: {dag.num_tasks} tasks, {len(dag.deps)} deps, "
+        f"{dag.cluster.num_pods} pods; s per method "
+        f"{ {m: round(r.elapsed, 3) for m, r in results.items()} }, "
+        f"selected {payload['method']}, wall {wall:.1f} s; row sums "
+        f"{x.sum(axis=1).tolist()} within limits {limits.tolist()}")
+    fast = results.get("delta-fast")
+    gens = fast.details["generations"] if fast else 0
+    gen_s = spans.get("ga.generation", {}).get("total_s", 0.0)
+    log(f"[cli] {arch} delta-fast: {gens} generations, "
+        f"{gen_s / max(gens, 1):.3f} s/generation, "
+        f"{fast.details['evaluations'] if fast else 0} evaluations; spans "
+        + ", ".join(f"{k} x{v['count']} {v['total_s']:.2f} s"
+                    for k, v in spans.items()))
+    _trips_and_launches("cli", c, batches)
+    _no_worse("cli", arch, results)
+    if x.shape != (dag.cluster.num_pods,) * 2 or not (x == x.T).all() \
+            or (x.sum(axis=1) > limits).any() \
+            or payload["method"] not in results:
+        fail(f"cli {arch}: --out topology {x.tolist()} against limits "
+             f"{limits.tolist()}, method {payload['method']}")
+    xs = [r.x for r in results.values()]
+    _card_vs_numpy("cli", f"{arch}'s {len(xs)} method topologies", dag, xs,
+                   range(len(xs)))
+    _maxmin_at_dag("cli", arch, dag, np.random.default_rng(5))
+
+
+def _registry_dag(arch: str):
+    """`arch`'s DAG at its full configured width (seq 4096)."""
+    from repro_torch.configs import ALL_ARCHS, make_job
+    from repro_torch.core.schedule import build_comm_dag
+    t0 = time.perf_counter()
+    dag = build_comm_dag(make_job(ALL_ARCHS[arch], seq_len=4096), 400.0)
+    log(f"[dag] {arch}: {dag.num_tasks} tasks, {len(dag.deps)} deps, "
+        f"{dag.cluster.num_pods} pods, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dag
+
+
+def _cli_ga(dag) -> None:
+    """The CLI's default methods on CLI_GA_ARCH, an MoE DAG above the
+    GA's device task limit (`auto` would run it on the host), with the GA
+    forced onto the card for CLI_GA_GENERATIONS generations and the
+    counts at 0 before it: fill_maxmin once per trip, delta-fast no worse
+    than the best baseline, and every method's topology scored on the
+    card against the numpy DES."""
+    from repro_torch import obs
+    from repro_torch.core.api import compare
+    from repro_torch.core.ga import GAOptions, TopologySpace
+
+    space = TopologySpace(dag)
+    log(f"[cli] {CLI_GA_ARCH}: GA space over pod pairs {space.edges}, "
+        f"X-bar {space.xbar.tolist()}, port limits "
+        f"{sorted(set(space.U.tolist()))}")
+    obs.TRACER.clear()
+    _reset_counts()             # this path's counts start at 0
+    t0 = time.perf_counter()
+    with obs.enabled():
+        results = compare(dag, methods=CLI_METHODS, ga_options=GAOptions(
+            backend="torch", max_generations=CLI_GA_GENERATIONS))
+    wall = time.perf_counter() - t0
+    c = _counts()
+    spans = obs.TRACER.summary()
+    batches = spans.get("ga.fitness_batch", {}).get("count", 0)
+    fast = results["delta-fast"]
+    log(f"[cli] {CLI_GA_ARCH} on the card: s per method "
+        f"{ {m: round(r.elapsed, 3) for m, r in results.items()} }, NCT "
+        f"{ {m: float(r.nct) for m, r in results.items()} }, ports "
+        f"{ {m: r.total_ports for m, r in results.items()} }; delta-fast "
+        f"{fast.details['generations']} generations, "
+        f"{fast.details['evaluations']} evaluations; wall {wall:.1f} s")
+    _trips_and_launches("cli", c, batches)
+    _no_worse("cli", CLI_GA_ARCH, results)
+    xs = [r.x for r in results.values()]
+    _card_vs_numpy("cli", f"{CLI_GA_ARCH}'s {len(xs)} method topologies",
+                   dag, xs, range(len(xs)))
+
+
+def phase_cli(jamba) -> None:
+    """`python -m repro_torch.launch.topo_plan` in process at two registry
+    architectures that the GA's `auto` backend sends to the card (the MoE
+    granite-moe-1b-a400m and the vision-language llama-3.2-vision-11b);
+    the CLI's methods on the MoE grok-1-314b with the GA forced onto the
+    card; then LANES random genomes of the widest registry DAG, `jamba`,
+    as one batch on the card against the numpy DES for two of them."""
+    import numpy as np
+    from repro_torch.core.ga import TopologySpace
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    for arch in CLI_ARCHS:
+        _cli_run(arch, out / f"plan_{arch}.json")
+    _cli_ga(_registry_dag(CLI_GA_ARCH))
+    space = TopologySpace(jamba)
+    genomes = space.random_init_batch(np.random.default_rng(0), LANES)
+    _card_vs_numpy("cli", f"{JAMBA}'s random genomes", jamba,
+                   [space.to_matrix(g) for g in genomes], (0, LANES - 1))
+    log(f"[cli] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_examples() -> None:
+    """The seven planner and fleet examples in process on the card, each
+    at its fast setting (plan_topology at gpt-7b) and with the counts at
+    0 before it: each returns 0, its GA launches fill_maxmin once per
+    trip, and the fleet examples' waterfill launches fill_matvec once per
+    round."""
+    import contextlib
+    import io
+    from repro_torch import obs
+    from repro_torch.examples import (chaos_fleet, control_plane,
+                                      fleet_realloc, plan_topology,
+                                      planes_transition, quickstart,
+                                      trace_plan)
+    from repro_torch.obs import REGISTRY
+
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "chip_smoke" / "trace"
+    runs = (("quickstart", lambda: quickstart.main([], fast=True)),
+            # its delta-joint MILP (HiGHS, on the host) is most of its time
+            ("plan_topology",
+             lambda: plan_topology.main(["--arch", "gpt-7b"])),
+            ("trace_plan", lambda: trace_plan.main(["--out", str(out)])),
+            ("fleet_realloc", lambda: fleet_realloc.main([])),
+            ("chaos_fleet", lambda: chaos_fleet.main([])),
+            ("control_plane", lambda: control_plane.main([])),
+            ("planes_transition", lambda: planes_transition.main([])))
+    for name, run in runs:
+        _reset_fleet_counts()   # this example's counts start at 0
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        # trace_plan turns the tracer on; the context restores its state
+        with obs.enabled(obs.TRACER.is_enabled), \
+                contextlib.redirect_stdout(text):
+            rc = run() or 0
+        wall = time.perf_counter() - t0
+        obs.TRACER.clear()
+        c = _counts()
+        rounds = int(REGISTRY.counter("fleet_waterfill_rounds_total")
+                     .value())
+        last = text.getvalue().strip().splitlines()[-1]
+        log(f"[examples] {name}: rc {rc}, {wall:.2f} s, {c['trips']:.0f} "
+            f"trips, {c['maxmin']} fill_maxmin launches, {rounds} waterfill"
+            f" rounds, {c['launches']} fill_matvec launches; last line "
+            f"{last!r}")
+        if rc != 0 or c["maxmin"] != c["trips"] or c["maxmin"] == 0 \
+                or c["launches"] != rounds \
+                or (name == "fleet_realloc" and rounds == 0):
+            fail(f"example {name}: rc {rc}, {c['maxmin']} fill_maxmin "
+                 f"launches for {c['trips']:.0f} trips, {c['launches']} "
+                 f"fill_matvec launches for {rounds} waterfill rounds\n"
+                 f"{text.getvalue()[-3000:]}")
+    log(f"[examples] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    walls: dict[str, float] = {}
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return out
     phase_device()
     import torch
-    phase_build()
+    timed("build", phase_build)
     dag = _megatron_462b()
     dags = (dag, *(_megatron_462b(s) for s in ROBUST_SEQ_LENS[1:]))
     mb_dags = (dag, *(_megatron_462b(microbatches=m)
                       for m in ROBUST_MICROBATCHES[1:]))
+    jamba = _registry_dag(JAMBA)
+    t0 = time.perf_counter()
     waterfill = kernel_waterfill()
-    maxmin = kernel_maxmin(dag)
+    maxmin = kernel_maxmin(dag, jamba)
     kernel_maxmin_members([("seq-len pair", dags, False),
                            ("microbatch pair", mb_dags, True)])
     tclosure, closure_steps = kernel_tclosure(dag)
     maxplus, paths_steps = kernel_maxplus(dag)
-    phase_des(dag)
-    maxmin["launches"], waterfill["launches"], x = phase_plan(dag)
-    phase_small_parity()
-    tclosure["launches"], t_up = phase_xbound(dag, closure_steps)
-    maxplus["launches"] = phase_paths(dag, t_up, paths_steps)
-    ens = phase_robust(dags, mb_dags)
-    phase_failsafe(dag)
-    phase_milp()
-    phase_resilient()
-    phase_trim(dag, x, ens)
-    phase_planes(dag)
-    fleet_matvec = phase_fleet()
+    walls["kernels"] = round(time.perf_counter() - t0, 1)
+    timed("des", phase_des, dag)
+    maxmin["launches"], waterfill["launches"], x = timed("plan", phase_plan,
+                                                         dag)
+    timed("plan gpt-7b", phase_small_parity)
+    tclosure["launches"], t_up = timed("xbound", phase_xbound, dag,
+                                       closure_steps)
+    maxplus["launches"] = timed("paths", phase_paths, dag, t_up,
+                                paths_steps)
+    ens = timed("robust", phase_robust, dags, mb_dags)
+    timed("failsafe", phase_failsafe, dag)
+    timed("milp", phase_milp)
+    timed("resilient", phase_resilient)
+    timed("trim", phase_trim, dag, x, ens)
+    timed("planes", phase_planes, dag)
+    fleet_matvec = timed("fleet", phase_fleet)
+    timed("cli", phase_cli, jamba)
+    timed("examples", phase_examples)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
-        f", the build included")
+        f", the build included; s per phase {walls}")
     log(json.dumps({"kernels": [waterfill, maxmin, tclosure, maxplus,
                                 fleet_matvec]}))
     print(json.dumps({"ok": True, "device": {

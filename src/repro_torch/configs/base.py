@@ -1,11 +1,14 @@
-"""Architecture / parallelism-plan schema and `make_job`.
+"""Architecture / shape / parallelism-plan schema for the framework.
 
-The port carries the schema and the traffic-generator entry point; its
-only architectures are the paper's Table-I workloads
-(`repro_torch.configs.paper_workloads.PAPER_WORKLOADS`).
+Each assigned architecture file (repro_torch/configs/<id>.py) defines
+    CONFIG: ModelConfig   -- exact published dimensions
+    PLAN:   ParallelismPlan -- training parallelization + pod placement used
+                               by DELTA's traffic generator
+and registers itself in the registry (repro_torch.configs.REGISTRY).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -133,6 +136,59 @@ class ModelConfig:
         n = self.embed_params() + self.head_params() + self.encoder_params()
         n += sum(self.layer_active_params(i) for i in range(self.layers))
         return n
+
+    # ------------------------------------------------------------- reduction
+    def reduced(self) -> "ModelConfig":
+        """Small same-family config for CPU smoke tests."""
+        g = self.group_size
+        layers = max(g, 2 if g == 1 else g)
+        enc = min(self.encoder_layers, 2)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            layers=layers,
+            d_model=128,
+            heads=4,
+            kv_heads=min(self.kv_heads, 2) if self.kv_heads < self.heads
+            else 4,
+            head_dim=32,
+            d_ff=256 if self.d_ff else 0,
+            vocab=512,
+            moe_experts=min(self.moe_experts, 4),
+            moe_top_k=min(self.moe_top_k, 2),
+            moe_capacity=float(max(self.moe_experts, 1)),  # drop-free smoke
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=16 if self.ssm_state else 64,
+            num_image_tokens=min(self.num_image_tokens, 16),
+            encoder_layers=enc,
+            enc_tokens=min(self.enc_tokens, 32),
+        )
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Skip rules per the assignment (recorded in the dry-run table)."""
+    if shape.name == "long_500k" and cfg.family not in \
+            SUBQUADRATIC_FAMILIES:
+        return False, "long_500k skipped: pure full-attention architecture"
+    return True, ""
 
 
 @dataclass(frozen=True)

@@ -116,8 +116,9 @@ class DESOptions:
                plain version, bit-equal to it, driven from the host;
                'segment': an index_add per round over the incidence
                entries.  The two 'cuda' backends need a CUDA device
-      device   None -> 'cuda'; without a CUDA device that raises rather
-               than run on the CPU, which needs device='cpu'
+      device   None -> 'cuda'; a CUDA device (named or not) raises
+               without one rather than run on the CPU, which needs
+               device='cpu'
       bucket   pad the problem to the BUCKET_QUANTUM buckets
       warn_on_miss  log a warning whenever a construction opens a new
                engine-cache bucket; the fleet sets it so bucket churn
@@ -130,14 +131,13 @@ class DESOptions:
     warn_on_miss: bool = False
 
     def resolve_device(self) -> torch.device:
-        if self.device is not None:
-            return torch.device(self.device)
-        if not torch.cuda.is_available():
+        device = torch.device("cuda" if self.device is None else self.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "the torch DES runs on a CUDA device and none is "
                 "available; pass DESOptions(device='cpu') to run it on "
                 "the CPU")
-        return torch.device("cuda")
+        return device
 
     def resolve_backend(self, device: torch.device) -> str:
         if self.backend not in MAXMIN_BACKENDS:

@@ -23,7 +23,10 @@ fleet's seams on the card: the plane-state lanes of the spare-plane
 fitness within rel 5e-5 of the numpy DES and bit-equal to the plain path;
 `waterfill_grants` (one `fill_matvec` launch per round) equal to its CPU
 run; `Tenant.des()` a cache miss, then a hit; a gpt-7b fleet the same
-topologies on the card as on the CPU."""
+topologies on the card as on the CPU.  The control-plane CLI on the card
+(its baselines equal to a CPU run's, its GA one `fill_maxmin` launch per
+trip), a batch of the widest registry DAG (jamba-1.5-large-398b) within
+rel 5e-5 of the numpy DES, and two examples returning 0 on the card."""
 import dataclasses
 import os
 import subprocess
@@ -687,3 +690,65 @@ def test_fleet_same_on_card_and_cpu(cuda):
                                       cpu.tenants[name].plan.x)
     assert card.ledger.snapshot() == cpu.ledger.snapshot()
     assert rep["realloc"]["granted_ports"] > 0
+
+
+def test_cli_on_card_launches_fill_maxmin_and_matches_cpu(cuda, tmp_path):
+    """The control-plane CLI on yi-6b at 4 microbatches on the card: its
+    delta-fast launches fill_maxmin once per trip, and the baselines'
+    results equal a CPU run's."""
+    from repro_torch.launch import topo_plan
+    base = ["--arch", "yi-6b", "--microbatches", "4"]
+    trips = REGISTRY.counter("des_event_trips_total")
+    t0, m0 = trips.value(), waterfill.maxmin_launches
+    card = topo_plan.main([*base, "--time-limit", "8", "--out",
+                           str(tmp_path / "card.json")])
+    torch.cuda.synchronize()
+    assert waterfill.maxmin_launches - m0 == trips.value() - t0 > 0
+    cpu = topo_plan.main([*base, "--methods",
+                          "prop-alloc,sqrt-alloc,iter-halve",
+                          "--device", "cpu"])
+    for m, want in cpu.items():
+        np.testing.assert_array_equal(card[m].x, want.x)
+        assert card[m].makespan == want.makespan
+        assert card[m].nct == want.nct
+    fast = card["delta-fast"]
+    assert fast.feasible
+    assert fast.nct <= min(r.nct for r in cpu.values()) * (1 + 1e-9)
+
+
+def test_jamba_batch_on_card_matches_numpy(cuda):
+    """One batch of 48 genomes of jamba-1.5-large-398b's DAG (2,898 tasks,
+    the widest registry DAG; the GA's `auto` backend keeps it on the
+    host) with the torch engine forced on the card: one fill_maxmin
+    launch per trip, and two genomes within rel 5e-5 of the numpy DES."""
+    from repro_torch.configs import ALL_ARCHS
+    dag = build_comm_dag(make_job(ALL_ARCHS["jamba-1.5-large-398b"],
+                                  seq_len=4096), 400.0)
+    assert dag.num_tasks == 2899
+    space = TopologySpace(dag)
+    prob = DESProblem(dag)
+    des = TorchDES(prob)
+    assert des.backend == "cuda"
+    genomes = space.random_init_batch(np.random.default_rng(0), 48)
+    trips = REGISTRY.counter("des_event_trips_total")
+    t0, m0 = trips.value(), waterfill.maxmin_launches
+    ms, feas = des.batch_genome_makespan(genomes, space.edge_u,
+                                         space.edge_v)
+    torch.cuda.synchronize()
+    assert waterfill.maxmin_launches - m0 == trips.value() - t0 > 0
+    assert feas.all()
+    for g in (0, 47):
+        want = simulate(prob, space.to_matrix(genomes[g])).makespan
+        assert ms[g] == pytest.approx(want, rel=DES_RTOL)
+
+
+@pytest.mark.parametrize("example", ["quickstart", "chaos_fleet"])
+def test_example_on_card_returns_zero(cuda, example, capsys):
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{example}")
+    m0 = waterfill.maxmin_launches
+    rc = mod.main([], fast=True) if example == "quickstart" \
+        else mod.main([])
+    assert not rc
+    assert waterfill.maxmin_launches > m0
+    assert capsys.readouterr().out
