@@ -100,7 +100,24 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               plan_topology at gpt-7b, trace_plan, fleet_realloc,
               chaos_fleet, control_plane, planes_transition) on the
               card, each returning 0, with fill_maxmin once per trip and
-              fill_matvec once per waterfill round.
+              fill_matvec once per waterfill round;
+ 17. serve    the LM serving path (python -m repro_torch.launch.serve) in
+              process at full published width in float32, the weights
+              drawn on the card from a seeded generator: qwen3-0.6b (its
+              default architecture; twice, the first call cold),
+              granite-moe-1b-a400m (MoE), mamba2-130m (SSM) and
+              whisper-large-v3 (encoder-decoder) at batch 4, a 64-token
+              prompt and 32 decode steps, each with its weight bytes,
+              prefill ms, decode ms per step, tok/s and peak allocated
+              memory; kernels launched, device busy time and idle share
+              of one qwen3-0.6b decode step; prefill and 4
+              teacher-forced decode steps of qwen3-0.6b and
+              granite-moe-1b-a400m at full width on the card against the
+              same weights on the CPU (rel 1e-3 of max |logit|); decode
+              against the full forward at full width for qwen3-0.6b,
+              mamba2-130m and whisper-large-v3 (rel 2e-2); and all ten
+              registry architectures at their reduced size on the card,
+              decode against the full forward, finite logits.
 
 The kernels phase also holds fill_maxmin's member axis against its plain
 version: a sweep of 1-3 members, and the two members of each [robust]
@@ -195,6 +212,21 @@ CLI_METHODS = ("prop-alloc", "sqrt-alloc", "iter-halve", "delta-fast")
 CLI_GA_ARCH = "grok-1-314b"
 CLI_GA_GENERATIONS = 3
 JAMBA = "jamba-1.5-large-398b"
+# [serve]: the architectures served at full published width (each fits
+# one card in float32), serve.main's default shape, the two held against
+# the same weights on the CPU, and the three whose decode is held against
+# their full forward.  granite-moe-1b-a400m is left out of that check:
+# its expert capacity C = ceil(S * 8 / 32 * 1.25) depends on the tokens
+# of one call, so at full width the drops of one forward over S + 1
+# tokens differ from those of a prefill plus a decode step, in the
+# reference too (the reduced configs drop nothing).
+SERVE_ARCHS = ("qwen3-0.6b", "granite-moe-1b-a400m", "mamba2-130m",
+               "whisper-large-v3")
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 64, 32
+SERVE_CPU_ARCHS = ("qwen3-0.6b", "granite-moe-1b-a400m")
+SERVE_CPU_REL = 1e-3
+SERVE_DECODE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "whisper-large-v3")
+SERVE_DECODE_REL = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -231,6 +263,17 @@ def bound_ms(bytes_moved: float, ops: float, rate: float = F32_PEAK
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -239,15 +282,10 @@ def phase_device():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
              f"from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = _card()
     log(f"[device] python {sys.version.split()[0]} torch {torch.__version__}"
         f" cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
-    log(smi.stdout.strip().splitlines()[0])
+    log(card)
 
 
 def phase_build():
@@ -2270,6 +2308,196 @@ def phase_examples() -> None:
     log(f"[examples] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|, on the CPU in float32."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-6))
+
+
+def _lm_inputs(cfg, b: int, s: int, n: int, seed: int = 0):
+    """A prompt (b, s), the modality input of a vlm / encdec model and n
+    teacher-forced tokens (b, n), from a seeded CPU generator."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g)
+    xl = cfg.enc_tokens if cfg.encoder_layers else cfg.num_image_tokens
+    xkv = torch.randn((b, xl, cfg.d_model), generator=g) if xl else None
+    return tokens, xkv, torch.randint(0, cfg.vocab, (b, n), generator=g)
+
+
+def _serve_main(arch: str, tag: str):
+    """`serve.main` at full width on the card at its default shape: its
+    two lines, then weight bytes, prefill ms, decode ms per step, tok/s
+    and the peak of allocated memory."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = serve.main(["--arch", arch, "--batch", str(SERVE_BATCH),
+                          "--prompt-len", str(SERVE_PROMPT),
+                          "--decode-steps", str(SERVE_STEPS)])
+    peak = torch.cuda.max_memory_allocated()
+    for line in text.getvalue().strip().splitlines():
+        log(line)
+    logits = out["logits"]
+    if not logits.is_cuda or not bool(torch.isfinite(logits).all()) or \
+            out["tokens"].shape != (SERVE_BATCH, SERVE_STEPS + 1):
+        fail(f"serve.main {arch}: logits on {logits.device}, finite "
+             f"{bool(torch.isfinite(logits).all())}, tokens "
+             f"{tuple(out['tokens'].shape)}")
+    log(f"[serve] {arch} ({tag}): {out['param_bytes']} B of float32 "
+        f"weights; prefill {SERVE_BATCH}x{SERVE_PROMPT} "
+        f"{out['prefill_s'] * 1e3:.3f} ms; decode "
+        f"{out['decode_s'] * 1e3 / SERVE_STEPS:.3f} ms per step over "
+        f"{SERVE_STEPS} steps, {out['tok_per_s']:.1f} tok/s; peak "
+        f"{peak} B allocated")
+    return out
+
+
+def _teacher_forced(cfg, lm, device, tokens, xkv, nxt):
+    """Prefill, then one decode step per column of `nxt`: the logits of
+    each step."""
+    from repro_torch.models import model as M
+    from repro_torch.training import train_step as ts
+    b, s = tokens.shape
+    cache = M.init_cache(cfg, b, s + nxt.shape[1], dtype=lm.embed.dtype,
+                         device=device,
+                         enc_len=0 if xkv is None else xkv.shape[1])
+    out, cache = ts.make_prefill_step(cfg, has_xkv=xkv is not None)(
+        lm, cache, tokens.to(device), None if xkv is None else xkv.to(device))
+    steps = [out]
+    decode = ts.make_decode_step(cfg)
+    for t in range(nxt.shape[1]):
+        _, out, cache = decode(lm, cache, nxt[:, t:t + 1].to(device))
+        steps.append(out)
+    return steps
+
+
+def _decode_vs_full(cfg, lm, b: int, s: int, seed: int) -> float:
+    """Prefill s tokens, decode one more; its logits against the full
+    forward's last position on the same device."""
+    import torch
+    from repro_torch.models import model as M
+    dev = lm.embed.device
+    tokens, xkv, nxt = _lm_inputs(cfg, b, s, 1, seed)
+    tokens, nxt = tokens.to(dev), nxt.to(dev)
+    xkv = None if xkv is None else xkv.to(dev)
+    cache = M.init_cache(cfg, b, s + 1, dtype=lm.embed.dtype, device=dev,
+                         enc_len=0 if xkv is None else xkv.shape[1])
+    with torch.no_grad():
+        _, cache = M.forward(cfg, lm, tokens, xkv=xkv, cache=cache)
+        dec, _ = M.forward(cfg, lm, nxt, cache=cache)
+        full, _ = M.forward(cfg, lm, torch.cat([tokens, nxt], 1), xkv=xkv)
+    if not bool(torch.isfinite(full).all()) or \
+            not bool(torch.isfinite(dec).all()):
+        fail(f"{cfg.name}: non-finite logits")
+    return _rel(dec[:, 0], full[:, -1])
+
+
+def _decode_trace(cfg, lm, wall_ms: float) -> None:
+    """Kernels launched, device busy time and idle share of one decode
+    step at serve.main's shape, from a torch.profiler trace; the wall
+    time per step is serve.main's."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import train_step as ts
+    tokens, _, nxt = _lm_inputs(cfg, SERVE_BATCH, SERVE_PROMPT, 4)
+    cache = M.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + 4,
+                         dtype=torch.float32, device="cuda")
+    _, cache = ts.make_prefill_step(cfg)(lm, cache, tokens.cuda())
+    decode = ts.make_decode_step(cfg)
+    for t in range(3):
+        decode(lm, cache, nxt[:, t:t + 1].cuda())
+    prof = _profile(lambda: decode(lm, cache, nxt[:, 3:4].cuda()))
+    dev = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(ev.name == "cudaLaunchKernel" for ev in prof.events())
+    busy_ms = _busy_s(prof) * 1e3
+    log(f"[serve] {cfg.name} one decode step (batch {SERVE_BATCH}): "
+        f"{launches} cudaLaunchKernel calls, {len(dev)} device kernels "
+        f"and copies, device busy {busy_ms:.3f} ms of serve.main's "
+        f"{wall_ms:.3f} ms per step: idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.4f}"
+        if dev else f"[serve] {cfg.name} one decode step: {launches} "
+        f"cudaLaunchKernel calls; device time not measured (no device "
+        f"events in the trace)")
+
+
+def phase_serve() -> None:
+    """The LM serving path on the card: `serve.main` at full width for
+    SERVE_ARCHS; the same weights on the card and on the CPU; decode
+    against the full forward at full width and for all ten registry
+    architectures at their reduced size."""
+    import copy
+    import gc
+    import torch
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    log(f"[serve] card: {_card()}")
+    walls = {}
+    for arch in SERVE_ARCHS:
+        tags = ("cold", "warm") if arch == SERVE_ARCHS[0] else ("",)
+        for tag in tags:
+            out = _serve_main(arch, tag or "once")
+        walls[arch] = out["decode_s"] * 1e3 / SERVE_STEPS
+        del out
+    for arch in SERVE_ARCHS:
+        if arch not in SERVE_CPU_ARCHS + SERVE_DECODE_ARCHS:
+            continue
+        t0 = time.perf_counter()
+        cfg = REGISTRY[arch].config
+        lm = M.LM(cfg, dtype=torch.float32, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+        if arch == SERVE_ARCHS[0]:
+            _decode_trace(cfg, lm, walls[arch])
+        if arch in SERVE_CPU_ARCHS:
+            cpu_lm = copy.deepcopy(lm).to("cpu")
+            tokens, xkv, nxt = _lm_inputs(cfg, 1, SERVE_PROMPT, 4, seed=1)
+            card = _teacher_forced(cfg, lm, torch.device("cuda"), tokens,
+                                   xkv, nxt)
+            host = _teacher_forced(cfg, cpu_lm, torch.device("cpu"),
+                                   tokens, xkv, nxt)
+            errs = [_rel(a, b) for a, b in zip(card, host)]
+            log(f"[serve] {arch} card vs CPU, same weights, batch 1: "
+                f"prefill and 4 teacher-forced decode steps, rel err "
+                f"{', '.join(f'{e:.3e}' for e in errs)} (limit "
+                f"{SERVE_CPU_REL})")
+            if not all(t.is_cuda for t in card) or \
+                    max(errs) > SERVE_CPU_REL:
+                fail(f"{arch}: card disagrees with the CPU: {errs}")
+            del cpu_lm, card, host
+        if arch in SERVE_DECODE_ARCHS:
+            err = _decode_vs_full(cfg, lm, 2, SERVE_PROMPT, seed=2)
+            log(f"[serve] {arch} decode vs full forward on the card, batch"
+                f" 2, prompt {SERVE_PROMPT}: rel err {err:.3e} (limit "
+                f"{SERVE_DECODE_REL})")
+            if err > SERVE_DECODE_REL:
+                fail(f"{arch}: decode disagrees with the full forward: "
+                     f"{err}")
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[serve] {arch} checks {time.perf_counter() - t0:.1f} s")
+    errs = {}
+    for arch in sorted(REGISTRY):
+        cfg = REGISTRY[arch].config.reduced()
+        lm = M.LM(cfg, dtype=torch.float32, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+        errs[arch] = _decode_vs_full(cfg, lm, 2, 24, seed=3)
+        if errs[arch] > SERVE_DECODE_REL:
+            fail(f"{arch} (reduced): decode disagrees with the full "
+                 f"forward: {errs[arch]}")
+    log(f"[serve] the ten architectures reduced, decode vs full forward "
+        f"on the card, rel err: "
+        f"{', '.join(f'{a} {e:.3e}' for a, e in errs.items())}")
+    log(f"[serve] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     walls: dict[str, float] = {}
@@ -2312,6 +2540,7 @@ def main() -> int:
     fleet_matvec = timed("fleet", phase_fleet)
     timed("cli", phase_cli, jamba)
     timed("examples", phase_examples)
+    timed("serve", phase_serve)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
         f", the build included; s per phase {walls}")
     log(json.dumps({"kernels": [waterfill, maxmin, tclosure, maxplus,

@@ -9,6 +9,10 @@ device tensors: the torch DES builds its arrays through them, and the
 parity tests feed the JAX reference's arrays through them.  An ensemble's
 members, padded to one shape, stack on a leading member axis
 (`stack_problems` in both packages), and cross the same way.
+
+The LM model zoo has weights: `lm_params_from_jax` is the one place where
+the reference's parameter pytree crosses over, as the port's
+`state_dict`.
 """
 from __future__ import annotations
 
@@ -105,3 +109,47 @@ def topology_from_numpy(x, device: torch.device | str) -> torch.Tensor:
         return torch.from_numpy(a.astype(np.float32)).to(device)
     raise TypeError(f"topology of dtype {a.dtype} is neither integer nor "
                     f"float")
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor of its own (a copy); bfloat16
+    (ml_dtypes) by its bits."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_jax(cfg, params) -> dict[str, torch.Tensor]:
+    """The reference's `init_params` pytree (numpy arrays, or anything
+    `np.asarray` takes) -> a `state_dict` of `repro_torch.models.model.LM`
+    for `cfg`, on the CPU.
+
+    `params["groups"][j]`'s leaves are stacked over the n_groups
+    repetitions of pattern position j: entry g becomes layer
+    `g * cfg.group_size + j`.  `params["encoder"]`'s leaves are stacked
+    over the encoder layers.
+    """
+    out: dict[str, torch.Tensor] = {}
+
+    def put(prefix: str, tree, index: int | None = None) -> None:
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                put(f"{prefix}{name}.", leaf, index)
+            else:
+                a = np.asarray(leaf)
+                out[prefix + name] = _tensor(a if index is None
+                                             else a[index])
+
+    put("", {k: v for k, v in params.items()
+             if k not in ("groups", "encoder")})
+    g = cfg.group_size
+    if len(params["groups"]) != g:
+        raise ValueError(f"{cfg.name}: {len(params['groups'])} pattern "
+                         f"positions, group size {g}")
+    for j, stacked in enumerate(params["groups"]):
+        for gi in range(cfg.layers // g):
+            put(f"layers.{gi * g + j}.", stacked, gi)
+    for e in range(cfg.encoder_layers):
+        put(f"encoder.{e}.", params["encoder"], e)
+    return out

@@ -26,7 +26,12 @@ run; `Tenant.des()` a cache miss, then a hit; a gpt-7b fleet the same
 topologies on the card as on the CPU.  The control-plane CLI on the card
 (its baselines equal to a CPU run's, its GA one `fill_maxmin` launch per
 trip), a batch of the widest registry DAG (jamba-1.5-large-398b) within
-rel 5e-5 of the numpy DES, and two examples returning 0 on the card."""
+rel 5e-5 of the numpy DES, and two examples returning 0 on the card.
+The LM serving path on the card (one architecture of each family at its
+reduced size): prefill and 4 decode steps within rel 1e-4 of max |logit|
+of the same weights on the CPU (float32, TF32 off; cuBLAS sums in
+another order), decode within rel 2e-2 of the full forward (as
+tests/test_models.py), and `serve.main` on the card."""
 import dataclasses
 import os
 import subprocess
@@ -752,3 +757,85 @@ def test_example_on_card_returns_zero(cuda, example, capsys):
     assert not rc
     assert waterfill.maxmin_launches > m0
     assert capsys.readouterr().out
+
+
+# one architecture of each family: dense, moe, ssm, hybrid, vlm, encdec
+FAMILIES = ["qwen3-0.6b", "granite-moe-1b-a400m", "mamba2-130m",
+            "jamba-1.5-large-398b", "llama-3.2-vision-11b",
+            "whisper-large-v3"]
+
+
+def _lm_inputs(cfg, b, s, seed=0):
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+    xl = cfg.enc_tokens if cfg.encoder_layers else cfg.num_image_tokens
+    xkv = torch.from_numpy(rng.standard_normal(
+        (b, xl, cfg.d_model)).astype(np.float32)) if xl else None
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 4)))
+    return tokens, xkv, nxt
+
+
+def _rel(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-6))
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_lm_serving_on_card_matches_cpu(cuda, arch):
+    from repro_torch.configs import REGISTRY as ARCHS
+    from repro_torch.models import model as M
+    from repro_torch.training import train_step as ts
+    cfg = ARCHS[arch].config.reduced()
+    lm = M.LM(cfg, dtype=torch.float32, device=cuda,
+              generator=torch.Generator(device=cuda).manual_seed(0))
+    assert lm.embed.is_cuda
+    cpu_lm = M.LM(cfg, dtype=torch.float32, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    cpu_lm.load_state_dict({k: v.cpu() for k, v in lm.state_dict().items()})
+    tokens, xkv, nxt = _lm_inputs(cfg, 2, 12)
+    prefill = ts.make_prefill_step(cfg, has_xkv=xkv is not None)
+    decode = ts.make_decode_step(cfg)
+    logits = {}
+    for dev, model in ((cuda, lm), (torch.device("cpu"), cpu_lm)):
+        cache = M.init_cache(cfg, 2, 16, dtype=torch.float32, device=dev,
+                             enc_len=0 if xkv is None else xkv.shape[1])
+        out, cache = prefill(model, cache, tokens.to(dev),
+                             None if xkv is None else xkv.to(dev))
+        steps = [out]
+        for t in range(4):
+            _, out, cache = decode(model, cache, nxt[:, t:t + 1].to(dev))
+            steps.append(out)
+        logits[dev.type] = steps
+    for step, (got, want) in enumerate(zip(logits["cuda"], logits["cpu"])):
+        assert got.is_cuda
+        assert _rel(got, want) < 1e-4, f"{arch} step {step}"
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_lm_decode_matches_full_forward_on_card(cuda, arch):
+    from repro_torch.configs import REGISTRY as ARCHS
+    from repro_torch.models import model as M
+    cfg = ARCHS[arch].config.reduced()
+    lm = M.LM(cfg, dtype=torch.float32, device=cuda,
+              generator=torch.Generator(device=cuda).manual_seed(1))
+    tokens, xkv, nxt = _lm_inputs(cfg, 2, 24, seed=1)
+    tokens, nxt = tokens.to(cuda), nxt[:, :1].to(cuda)
+    xkv = None if xkv is None else xkv.to(cuda)
+    cache = M.init_cache(cfg, 2, 26, dtype=torch.float32, device=cuda,
+                         enc_len=0 if xkv is None else xkv.shape[1])
+    with torch.no_grad():
+        _, cache = M.forward(cfg, lm, tokens, xkv=xkv, cache=cache)
+        dec, _ = M.forward(cfg, lm, nxt, cache=cache)
+        full, _ = M.forward(cfg, lm, torch.cat([tokens, nxt], 1), xkv=xkv)
+    assert bool(torch.isfinite(full).all())
+    assert _rel(dec[:, 0], full[:, -1]) < 2e-2, arch
+
+
+def test_serve_main_on_card(cuda, capsys):
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", "qwen3-0.6b", "--reduce", "--batch", "2",
+                      "--prompt-len", "16", "--decode-steps", "4"])
+    assert out["logits"].is_cuda
+    assert bool(torch.isfinite(out["logits"]).all())
+    assert out["tokens"].shape == (2, 5)
+    assert capsys.readouterr().out.startswith("[serve] qwen3-0.6b-smoke: ")
