@@ -117,7 +117,25 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               against the full forward at full width for qwen3-0.6b,
               mamba2-130m and whisper-large-v3 (rel 2e-2); and all ten
               registry architectures at their reduced size on the card,
-              decode against the full forward, finite logits.
+              decode against the full forward, finite logits;
+ 18. train    the LM training path (python -m repro_torch.launch.train)
+              in process at qwen3-0.6b's full published width in float32
+              with the driver's defaults (batch 8, seq 128, lr 1e-3): 40
+              steps, a checkpoint every 10, a failure injected at step 25
+              and --plan-topology (the job's fabric planned first, its GA
+              on the card: fill_maxmin once per trip); exactly one
+              restart, the replayed steps within rel 1e-5 of their first
+              run, a falling loss, the state on the card; then steady
+              steps timed (ms per step, tokens/s, peak memory, one step's
+              launches, device busy and idle share, the FLOP and HBM
+              bounds, host syncs) and a full-width checkpoint saved and
+              restored; the card against the CPU from one state
+              (qwen3-0.6b at full width, batch 2 x seq 32, 2 steps, and
+              the ten registry architectures reduced, 3 steps: loss rel
+              1e-5, grad norm rel 1e-4); granite-moe-1b-a400m and
+              mamba2-130m at full width, 5 steps; accumulation over 4
+              microbatches against one batch (loss rel 1e-4, parameters
+              5e-3).
 
 The kernels phase also holds fill_maxmin's member axis against its plain
 version: a sweep of 1-3 members, and the two members of each [robust]
@@ -227,6 +245,26 @@ SERVE_CPU_ARCHS = ("qwen3-0.6b", "granite-moe-1b-a400m")
 SERVE_CPU_REL = 1e-3
 SERVE_DECODE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "whisper-large-v3")
 SERVE_DECODE_REL = 2e-2
+# [train]: launch.train.main at qwen3-0.6b's full published width with
+# the driver's defaults (batch 8, seq 128, accum 1, lr 1e-3, float32), a
+# failure injected between two checkpoints; replays held at
+# tests/test_training.py's rel 1e-5 (the card's atomic sums are not
+# ordered); steady steps timed after it; the card against the CPU from
+# one initial state (full width at a small shape, and the ten registry
+# architectures reduced); the other two families at full width; and
+# accumulation against one batch at tests/test_training.py's limits
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 40, 10, 25
+TRAIN_REPLAY_REL = 1e-5
+TRAIN_TIMED_STEPS = 5
+TRAIN_CPU_SHAPE = (2, 32, 2)        # batch, seq, steps at full width
+TRAIN_REDUCED_STEPS = 3
+TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-5, 1e-4
+TRAIN_FAMILIES = ("granite-moe-1b-a400m", "mamba2-130m")
+TRAIN_FAMILY_STEPS = 5
+TRAIN_ACCUM = 4
+TRAIN_ACCUM_LOSS_REL, TRAIN_ACCUM_PARAM_ABS = 1e-4, 5e-3
 
 
 def fail(msg: str) -> None:
@@ -886,10 +924,14 @@ def _profile(fn):
 
 def _busy_s(prof) -> float:
     """Seconds the device spent in kernels and copies in a trace (0.0 when
-    it holds no device time)."""
+    it holds no device time), summed over the profiler's raw events: the
+    event tree that `prof.events()` builds takes tens of seconds for a
+    trace of a fitness batch's ~130,000 kernels."""
     import torch
-    return 1e-6 * sum(ev.device_time_total for ev in prof.events()
-                      if ev.device_type == torch.autograd.DeviceType.CUDA)
+    cuda = torch.autograd.DeviceType.CUDA
+    return 1e-9 * sum(ev.end_ns() - ev.start_ns()
+                      for ev in prof.profiler.kineto_results.events()
+                      if ev.device_type() == cuda and not ev.is_async())
 
 
 def _device_only_busy_s(fn) -> float:
@@ -907,7 +949,8 @@ def _device_only_busy_s(fn) -> float:
 
 def _host_syncs(fn) -> int:
     """Host syncs during one call of `fn`: the warnings of
-    torch.cuda.set_sync_debug_mode("warn"), each one counted."""
+    torch.cuda.set_sync_debug_mode("warn"), each one counted (not the
+    notice, given once per process, that the mode is a prototype)."""
     import warnings
     import torch
     torch.cuda.synchronize()
@@ -918,7 +961,8 @@ def _host_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
 
 
 def _device_us_per_call(fn, iters: int = 50) -> str:
@@ -2498,6 +2542,334 @@ def phase_serve() -> None:
     log(f"[serve] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _xkv_len(cfg) -> int:
+    return cfg.enc_tokens if cfg.encoder_layers else cfg.num_image_tokens
+
+
+def _train_batch(cfg, step: int, b: int, s: int, device,
+                 xkv: bool = False):
+    """Batch `step` of the data stream, made on the host with numpy (with
+    the modality input of a vlm / encdec model when `xkv`)."""
+    import torch
+    from repro_torch.training.data import SyntheticLM
+    xl = _xkv_len(cfg) if xkv else 0
+    batch = SyntheticLM(vocab=cfg.vocab, seed=0).batch(
+        step, b, s, (xl, cfg.d_model) if xl else None)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _state_to(state: dict, device) -> dict:
+    """A copy of a train state on `device`."""
+    import copy
+    opt = state["opt"]
+    return {"params": copy.deepcopy(state["params"]).to(device),
+            "opt": {"m": {n: t.to(device, copy=True)
+                          for n, t in opt["m"].items()},
+                    "v": {n: t.to(device, copy=True)
+                          for n, t in opt["v"].items()},
+                    "step": opt["step"].to(device, copy=True)}}
+
+
+def _state_tensors(state: dict) -> dict:
+    """Every tensor of a train state by its name."""
+    opt = state["opt"]
+    return {**{f"params/{n}": p for n, p in
+               state["params"].named_parameters()},
+            **{f"m/{n}": t for n, t in opt["m"].items()},
+            **{f"v/{n}": t for n, t in opt["v"].items()},
+            "step": opt["step"]}
+
+
+def _train_pair(cfg, b: int, s: int, steps: int, seed: int = 0):
+    """`steps` train steps from one initial float32 state on the card and
+    on the CPU (a copy), a vlm / encdec model with its modality input:
+    (metrics, final state) of each."""
+    import torch
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as ts
+    ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=5)
+    card = ts.init_train_state(
+        cfg, ocfg, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    host = _state_to(card, "cpu")
+    xkv = bool(_xkv_len(cfg))
+    out = []
+    for state, dev in ((card, "cuda"), (host, "cpu")):
+        step = ts.make_train_step(cfg, ocfg, remat=False, has_xkv=xkv)
+        metrics = []
+        for i in range(steps):
+            state, m = step(state, _train_batch(cfg, i, b, s, dev, xkv))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out.append((metrics, state))
+    return out
+
+
+def _check_card_vs_cpu(tag: str, card, host) -> list[float]:
+    errs = []
+    for t, (c, h) in enumerate(zip(card, host)):
+        le = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+        ge = abs(c["grad_norm"] - h["grad_norm"]) / abs(h["grad_norm"])
+        errs += [le, ge]
+        if not (math.isfinite(c["loss"]) and le <= TRAIN_LOSS_REL
+                and ge <= TRAIN_GNORM_REL):
+            fail(f"[train] {tag} step {t}: card loss {c['loss']!r} grad "
+                 f"norm {c['grad_norm']!r}, CPU {h['loss']!r} "
+                 f"{h['grad_norm']!r} (limits rel {TRAIN_LOSS_REL}, "
+                 f"{TRAIN_GNORM_REL})")
+    return errs
+
+
+def _train_main() -> dict:
+    """`launch.train.main` at full width on the card (the counts at 0 just
+    before it): 40 steps, a checkpoint every 10, a failure at step 25,
+    the fabric planned first on the card; then the plan's three
+    topologies scored on the card against the numpy DES, and fill_maxmin
+    at the job DAG's CSR against its plain version."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import train
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as ckdir:
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            out = train.main([
+                "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                "--ckpt-every", str(TRAIN_CKPT_EVERY),
+                "--simulate-failure", str(TRAIN_FAIL_AT), "--plan-topology",
+                "--log-every", "5", "--ckpt-dir", ckdir])
+        wall = time.perf_counter() - t0
+        ckpts = sorted(p.name for p in Path(ckdir).iterdir())
+    c = _counts()
+    for line in text.getvalue().strip().splitlines():
+        log(line)
+    losses = out["losses"]
+    first = TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    n_replay = TRAIN_FAIL_AT - first
+    replay_err = max(abs(a - b) / abs(b) for a, b in zip(
+        losses[TRAIN_FAIL_AT:TRAIN_FAIL_AT + n_replay],
+        losses[first:TRAIN_FAIL_AT]))
+    head, tail = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"[train] main: {out['steps']} steps, {out['restarts']} restarts, "
+        f"{len(losses)} steps run ({n_replay} replayed), {wall:.1f} s in "
+        f"all, checkpoints {ckpts}; replays vs first run rel err "
+        f"{replay_err:.3e} (limit {TRAIN_REPLAY_REL}); loss first 5 "
+        f"{head:.4f} -> last 5 {tail:.4f}; --plan-topology: "
+        f"{c['trips']:.0f} trips, {c['maxmin']} fill_maxmin launches")
+    on_card = all(t.is_cuda for t in _state_tensors(out["state"]).values())
+    if out["restarts"] != 1 or out["steps"] != TRAIN_STEPS or \
+            len(losses) != TRAIN_STEPS + n_replay:
+        fail(f"[train] main: {out['restarts']} restarts (1 injected), "
+             f"{out['steps']} steps, {len(losses)} run")
+    if replay_err > TRAIN_REPLAY_REL:
+        fail(f"[train] replays differ from their first run: {replay_err}")
+    if not all(math.isfinite(x) for x in losses) or not tail < head:
+        fail(f"[train] losses: first 5 {losses[:5]}, last 5 {losses[-5:]}")
+    if not on_card:
+        fail("[train] a state tensor left the card")
+    if c["maxmin"] != c["trips"] or c["maxmin"] == 0:
+        fail(f"[train] --plan-topology: {c['maxmin']} fill_maxmin launches "
+             f"for {c['trips']:.0f} trips")
+    out["maxmin"] = c["maxmin"]
+    plan = out.pop("plan")
+    dag = train.topology_dag(TRAIN_ARCH, TRAIN_SEQ)
+    _no_worse("train", TRAIN_ARCH, plan)
+    xs = [r.x for r in plan.values()]
+    _card_vs_numpy("train", f"{TRAIN_ARCH}'s {len(xs)} method topologies",
+                   dag, xs, range(len(xs)))
+    _maxmin_at_dag("train", TRAIN_ARCH, dag, np.random.default_rng(7))
+    return out
+
+
+def _train_steady(state: dict) -> None:
+    """Steady steps of the trained full-width state (no checkpoint, no
+    replay): ms per step by the host clock around synchronize, tokens/s,
+    peak allocated memory, the state's bytes, one step's launches, device
+    busy time and idle share, the step's bounds; then one checkpoint's
+    save and restore seconds."""
+    import tempfile
+    import torch
+    from repro_torch.configs import REGISTRY
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as ts
+    cfg = REGISTRY[TRAIN_ARCH].config
+    ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=max(TRAIN_STEPS // 20, 5))
+    step = ts.make_train_step(cfg, ocfg, remat=False)
+    batches = [_train_batch(cfg, TRAIN_STEPS + i, TRAIN_BATCH, TRAIN_SEQ,
+                            "cuda") for i in range(TRAIN_TIMED_STEPS + 2)]
+    state, _ = step(state, batches[-1])     # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for b in batches[:TRAIN_TIMED_STEPS]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    params = list(state["params"].parameters())
+    n_params = sum(p.numel() for p in params)
+    p_bytes = sum(p.numel() * p.element_size() for p in params)
+    mv_bytes = sum(t.numel() * t.element_size()
+                   for t in (*state["opt"]["m"].values(),
+                             *state["opt"]["v"].values()))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = sorted(walls)[len(walls) // 2]
+    log(f"[train] {TRAIN_ARCH} steady steps (batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, float32): ms per step "
+        f"{', '.join(f'{w:.3f}' for w in walls)} (median {ms:.3f}); "
+        f"{tokens / ms * 1e3:.1f} tokens/s; peak {peak} B allocated; "
+        f"parameters {n_params} ({p_bytes} B), m and v {mv_bytes} B")
+    def traced():
+        nonlocal state
+        state, _ = step(state, batches[TRAIN_TIMED_STEPS])
+
+    prof = _profile(traced)
+    syncs = _host_syncs(traced)
+    raw = prof.profiler.kineto_results.events()     # see _busy_s
+    dev = [ev for ev in raw
+           if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    launches = sum(ev.name() == "cudaLaunchKernel" for ev in raw)
+    busy_ms = _busy_s(prof) * 1e3
+    flop_ms = 6 * n_params * tokens / F32_PEAK * 1e3
+    hbm_ms = 7 * p_bytes / HBM_RATE * 1e3
+    log(f"[train] one step traced: {launches} cudaLaunchKernel calls, "
+        f"{len(dev)} device kernels and copies, device busy "
+        f"{busy_ms:.3f} ms of the median {ms:.3f} ms: idle share "
+        f"{max(0.0, 1 - busy_ms / ms):.4f}; {syncs} host syncs in a step"
+        if dev else
+        f"[train] one step traced: {launches} cudaLaunchKernel calls; "
+        f"device time not measured (no device events in the trace); "
+        f"{syncs} host syncs in a step")
+    log(f"[train] bounds: 6 x {n_params} parameters x {tokens} tokens at "
+        f"{F32_PEAK:.3g} FLOP/s (TF32 off) {flop_ms:.3f} ms; the update's "
+        f"7 parameter-sized passes ({7 * p_bytes} B) at {HBM_RATE:.3g} B/s "
+        f"{hbm_ms:.3f} ms; the step {ms / max(flop_ms, hbm_ms):.2f}x the "
+        f"larger")
+    with tempfile.TemporaryDirectory() as ckdir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(ckdir, 0, state)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _, _ = ckpt.restore(path, state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in Path(path).iterdir())
+    want, got = _state_tensors(state), _state_tensors(back)
+    same = sorted(got) == sorted(want) and all(
+        torch.equal(t, want[n]) for n, t in got.items())
+    on_card = all(t.is_cuda for t in got.values())
+    log(f"[train] full-width checkpoint ({disk} B on disk): save "
+        f"{t_save:.3f} s, restore {t_restore:.3f} s, restored state "
+        f"{'equal' if same else 'DIFFERENT'}, on the card {on_card}")
+    if not same or not on_card:
+        fail("[train] the full-width checkpoint did not restore")
+
+
+def phase_train() -> int:
+    """LM training on the card: `launch.train.main` at full width with a
+    failure and its replay, steady steps timed, a checkpoint's save and
+    restore, the card against the CPU, the other families at full width
+    and accumulation; returns [train]'s fill_maxmin launches."""
+    import gc
+    import torch
+    from repro_torch.configs import REGISTRY
+    t_phase = time.perf_counter()
+    log(f"[train] card: {_card()}")
+    out = _train_main()
+    maxmin = out["maxmin"]
+    state = out.pop("state")
+    del out
+    _train_steady(state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    b, s, n = TRAIN_CPU_SHAPE
+    t0 = time.perf_counter()
+    (card, _), (host, _) = _train_pair(REGISTRY[TRAIN_ARCH].config, b, s, n)
+    errs = _check_card_vs_cpu(TRAIN_ARCH, card, host)
+    log(f"[train] {TRAIN_ARCH} full width, card vs CPU from one state, "
+        f"batch {b} x seq {s}, {n} steps: loss and grad norm rel err "
+        f"{', '.join(f'{e:.3e}' for e in errs)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = {}
+    for arch in sorted(REGISTRY):
+        cfg = REGISTRY[arch].config.reduced()
+        (card, cs), (host, _) = _train_pair(cfg, 2, 16, TRAIN_REDUCED_STEPS)
+        errs[arch] = max(_check_card_vs_cpu(f"{arch} (reduced)", card,
+                                            host))
+        if not all(t.is_cuda for t in _state_tensors(cs).values()):
+            fail(f"[train] {arch}: a state tensor left the card")
+    log(f"[train] the ten architectures reduced, card vs CPU, "
+        f"{TRAIN_REDUCED_STEPS} steps: max rel err "
+        f"{', '.join(f'{a} {e:.3e}' for a, e in errs.items())}")
+
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as ts
+    for arch in TRAIN_FAMILIES:
+        cfg = REGISTRY[arch].config
+        ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=5)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = ts.init_train_state(
+            cfg, ocfg, device="cuda", dtype=torch.float32,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        step = ts.make_train_step(cfg, ocfg, remat=False)
+        walls, metrics = [], []
+        for i in range(TRAIN_FAMILY_STEPS):
+            batch = _train_batch(cfg, i, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            walls.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        losses = ", ".join(f"{m['loss']:.4f}" for m in metrics)
+        norms = ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
+        log(f"[train] {arch} full width, batch {TRAIN_BATCH} x seq "
+            f"{TRAIN_SEQ}: losses {losses}; grad norms {norms}; ms per step "
+            f"{', '.join(f'{w:.3f}' for w in walls)} (the first cold); "
+            f"peak {peak} B allocated")
+        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                   for m in metrics):
+            fail(f"[train] {arch}: non-finite loss or grad norm {metrics}")
+        del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = REGISTRY[TRAIN_ARCH].config.reduced()
+    ocfg = O.AdamWConfig(lr=1e-3, grad_clip=0.0)
+    base = ts.init_train_state(
+        cfg, ocfg, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(2))
+    batch = _train_batch(cfg, 0, 8, 16, "cuda")
+    res = {}
+    for accum in (1, TRAIN_ACCUM):
+        st, m = ts.make_train_step(cfg, ocfg, accum_steps=accum,
+                                   remat=False)(_state_to(base, "cuda"),
+                                                batch)
+        res[accum] = (float(m["loss"]), st["params"].state_dict())
+    loss_err = abs(res[1][0] - res[TRAIN_ACCUM][0]) / abs(res[1][0])
+    p_err = max(float((res[1][1][k] - v).abs().max())
+                for k, v in res[TRAIN_ACCUM][1].items())
+    log(f"[train] {cfg.name} on the card, accum_steps {TRAIN_ACCUM} vs 1 "
+        f"(batch 8 x seq 16): loss rel err {loss_err:.3e} (limit "
+        f"{TRAIN_ACCUM_LOSS_REL}), parameters max abs diff {p_err:.3e} "
+        f"(limit {TRAIN_ACCUM_PARAM_ABS})")
+    if loss_err > TRAIN_ACCUM_LOSS_REL or p_err > TRAIN_ACCUM_PARAM_ABS:
+        fail(f"[train] accumulation: loss {loss_err}, parameters {p_err}")
+    log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return maxmin
+
+
 def main() -> int:
     t_start = time.perf_counter()
     walls: dict[str, float] = {}
@@ -2541,6 +2913,7 @@ def main() -> int:
     timed("cli", phase_cli, jamba)
     timed("examples", phase_examples)
     timed("serve", phase_serve)
+    timed("train", phase_train)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
         f", the build included; s per phase {walls}")
     log(json.dumps({"kernels": [waterfill, maxmin, tclosure, maxplus,

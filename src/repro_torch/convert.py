@@ -10,13 +10,16 @@ parity tests feed the JAX reference's arrays through them.  An ensemble's
 members, padded to one shape, stack on a leading member axis
 (`stack_problems` in both packages), and cross the same way.
 
-The LM model zoo has weights: `lm_params_from_jax` is the one place where
-the reference's parameter pytree crosses over, as the port's
-`state_dict`.
+The LM model zoo has weights: `lm_params_from_jax` and `lm_params_to_jax`
+carry the reference's parameter pytree across as the port's `state_dict`
+and back, `train_state_from_jax` / `train_state_to_jax` a whole train
+state (parameters and AdamW moments), and `ref_leaves` is the one map
+from the port's parameter names to the reference's stacked leaves, which
+the checkpoints' layout also keys by.
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, NamedTuple
+from typing import TYPE_CHECKING, Iterable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -111,13 +114,24 @@ def topology_from_numpy(x, device: torch.device | str) -> torch.Tensor:
                     f"float")
 
 
-def _tensor(a) -> torch.Tensor:
-    """A numpy array as a CPU tensor of its own (a copy); bfloat16
-    (ml_dtypes) by its bits."""
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor of its own (a copy); bfloat16 by its
+    bits, from an ml_dtypes array or from 2-byte words (dtype V2, what
+    `np.load` reads back from a bfloat16 array's .npy file)."""
     a = np.array(a, order="C")
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of its own on the host; bfloat16, which
+    numpy lacks, as 2-byte words (dtype V2)."""
+    t = t.detach().to("cpu", copy=True).contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 def lm_params_from_jax(cfg, params) -> dict[str, torch.Tensor]:
@@ -138,8 +152,8 @@ def lm_params_from_jax(cfg, params) -> dict[str, torch.Tensor]:
                 put(f"{prefix}{name}.", leaf, index)
             else:
                 a = np.asarray(leaf)
-                out[prefix + name] = _tensor(a if index is None
-                                             else a[index])
+                out[prefix + name] = tensor_from_numpy(
+                    a if index is None else a[index])
 
     put("", {k: v for k, v in params.items()
              if k not in ("groups", "encoder")})
@@ -153,3 +167,84 @@ def lm_params_from_jax(cfg, params) -> dict[str, torch.Tensor]:
     for e in range(cfg.encoder_layers):
         put(f"encoder.{e}.", params["encoder"], e)
     return out
+
+
+def ref_leaves(cfg, names: Iterable[str]) -> dict[str, str | list[str]]:
+    """The reference's leaf path ("embed", "groups/[j]/attn/wq",
+    "encoder/mlp/w1") of each of the port's parameter names -> the name,
+    or, for a leaf the reference stacks, the names stacked into it in
+    order along its leading axis (layer g * group_size + j at entry g of
+    "groups/[j]/...", encoder layer e at entry e of "encoder/...")."""
+    g = cfg.group_size
+    stacked: dict[str, dict[int, str]] = {}
+    out: dict[str, str | list[str]] = {}
+    for name in names:
+        kind, _, rest = name.partition(".")
+        if kind not in ("layers", "encoder"):
+            out[name.replace(".", "/")] = name
+            continue
+        index, _, leaf = rest.partition(".")
+        i = int(index)
+        path = (f"groups/[{i % g}]" if kind == "layers" else "encoder") \
+            + "/" + leaf.replace(".", "/")
+        stacked.setdefault(path, {})[i // g if kind == "layers" else i] = name
+    for path, by_index in stacked.items():
+        out[path] = [by_index[k] for k in range(len(by_index))]
+    return out
+
+
+def stack_leaf(named: Mapping[str, torch.Tensor], names: str | list[str]
+               ) -> torch.Tensor:
+    """The reference's leaf from the port's tensors: `names` from
+    `ref_leaves`, stacked along a new leading axis when a list."""
+    if isinstance(names, str):
+        return named[names]
+    return torch.stack([named[n] for n in names])
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> dict:
+    """{"a/b": x} -> {"a": {"b": x}}, with "groups"' "[j]" entries as the
+    reference's tuple."""
+    tree: dict = {}
+    for key, value in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    if "groups" in tree:
+        tree["groups"] = tuple(tree["groups"][f"[{j}]"]
+                               for j in range(len(tree["groups"])))
+    return tree
+
+
+def lm_params_to_jax(cfg, state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of `lm_params_from_jax`: a `state_dict` of the port's
+    `LM` (or the moments keyed likewise) -> the reference's `init_params`
+    pytree of numpy arrays, the layers stacked into "groups" and
+    "encoder".  bfloat16 leaves come as 2-byte words (numpy has no
+    bfloat16: `.view(ml_dtypes.bfloat16)` reads them)."""
+    return _nest({path: tensor_to_numpy(stack_leaf(state_dict, names))
+                  for path, names in ref_leaves(cfg, state_dict).items()})
+
+
+def train_state_to_jax(cfg, state: dict) -> dict:
+    """The port's train state {"params": LM, "opt": {"m", "v", "step"}}
+    -> the reference's (`repro.training.train_step.init_train_state`'s
+    tree) as numpy arrays."""
+    opt = state["opt"]
+    return {"params": lm_params_to_jax(cfg, state["params"].state_dict()),
+            "opt": {"m": lm_params_to_jax(cfg, opt["m"]),
+                    "v": lm_params_to_jax(cfg, opt["v"]),
+                    "step": tensor_to_numpy(opt["step"])}}
+
+
+def train_state_from_jax(cfg, tree) -> dict:
+    """The reference's train state (numpy arrays, or anything `np.asarray`
+    takes) -> {"params": a `state_dict` of the port's `LM`, "opt": {"m",
+    "v": keyed by the same names, "step": 0-d int32}}, on the CPU."""
+    opt = tree["opt"]
+    return {"params": lm_params_from_jax(cfg, tree["params"]),
+            "opt": {"m": lm_params_from_jax(cfg, opt["m"]),
+                    "v": lm_params_from_jax(cfg, opt["v"]),
+                    "step": tensor_from_numpy(np.asarray(opt["step"]))}}

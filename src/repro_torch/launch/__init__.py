@@ -1,1 +1,2 @@
-"""Entry points of the port: `topo_plan`, the control-plane CLI."""
+"""Entry points of the port: `topo_plan` (the control-plane CLI), `serve`
+(batched decode serving) and `train` (the training driver)."""

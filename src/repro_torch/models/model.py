@@ -21,6 +21,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -157,30 +158,45 @@ def _apply_layer(cfg: ModelConfig, j: int, p: Layer, x: torch.Tensor,
     return x
 
 
-def encode(cfg: ModelConfig, params: LM, enc_embeds: torch.Tensor
-           ) -> torch.Tensor:
-    """Bidirectional encoder over stubbed frontend embeddings (forward
-    only: no remat)."""
+def _remat(fn, *args):
+    """fn(*args), its activations recomputed in the backward pass instead
+    of kept (the reference's `jax.checkpoint`)."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _encoder_layer(cfg: ModelConfig, p: EncoderLayer, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h, _ = L.attention_block(p.attn, cfg, L.rmsnorm(x, p.ln1, cfg.norm_eps),
+                             positions, causal=False)
+    x = x + h
+    return x + L.swiglu(p.mlp, L.rmsnorm(x, p.ln2, cfg.norm_eps))
+
+
+def encode(cfg: ModelConfig, params: LM, enc_embeds: torch.Tensor,
+           remat: bool = True) -> torch.Tensor:
+    """Bidirectional encoder over stubbed frontend embeddings.  With
+    `remat` (the reference's default, which its `forward` keeps) each
+    layer is recomputed in the backward pass when autograd records."""
     positions = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)
+    remat = remat and torch.is_grad_enabled()
     x = enc_embeds
     for p in params.encoder:
-        h, _ = L.attention_block(p.attn, cfg,
-                                 L.rmsnorm(x, p.ln1, cfg.norm_eps),
-                                 positions, causal=False)
-        x = x + h
-        x = x + L.swiglu(p.mlp, L.rmsnorm(x, p.ln2, cfg.norm_eps))
+        x = _remat(_encoder_layer, cfg, p, x, positions) if remat \
+            else _encoder_layer(cfg, p, x, positions)
     return x
 
 
 def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
-            xkv: torch.Tensor | None = None, cache: dict | None = None
-            ) -> tuple[torch.Tensor, dict | None]:
+            xkv: torch.Tensor | None = None, cache: dict | None = None,
+            remat: bool = False) -> tuple[torch.Tensor, dict | None]:
     """tokens (B, S) -> logits (B, S, V); updates the cache when given.
 
     xkv: stubbed modality embeddings (image patches / encoder output) for
     vlm / encdec families.  A given cache is updated in place (its K/V
     and states written, `pos` advanced by S, the modality source stored
-    at prefill for the decode steps to reuse) and returned.
+    at prefill for the decode steps to reuse) and returned.  `remat`
+    recomputes each layer's activations in the backward pass (without a
+    cache, when autograd records); the values do not change.
     """
     _, s = tokens.shape
     dev = tokens.device
@@ -196,9 +212,15 @@ def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
         xkv = enc_cached
 
     g = cfg.group_size
+    remat = remat and cache is None and torch.is_grad_enabled()
     for i, p in enumerate(params.layers):
-        cj = cache["layers"][i] if cache is not None else None
-        x = _apply_layer(cfg, i % g, p, x, positions, cj, xkv, pos_scalar)
+        if remat:
+            x = _remat(_apply_layer, cfg, i % g, p, x, positions, None, xkv,
+                       pos_scalar)
+        else:
+            cj = cache["layers"][i] if cache is not None else None
+            x = _apply_layer(cfg, i % g, p, x, positions, cj, xkv,
+                             pos_scalar)
     if cache is not None:
         cache["pos"] = pos_scalar + s
         if xkv is not None and (cfg.cross_attn_every or cfg.encoder_layers):
@@ -209,10 +231,11 @@ def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
 
 
 def loss_fn(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
-            labels: torch.Tensor, xkv: torch.Tensor | None = None
-            ) -> torch.Tensor:
-    """Mean next-token cross-entropy in float32 (the eval loss)."""
-    logits, _ = forward(cfg, params, tokens, xkv=xkv)
+            labels: torch.Tensor, xkv: torch.Tensor | None = None,
+            remat: bool = False) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 (the training and eval
+    loss)."""
+    logits, _ = forward(cfg, params, tokens, xkv=xkv, remat=remat)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]

@@ -44,6 +44,7 @@ import torch
 
 from conftest import gpt7b_job
 from repro_torch.configs import PAPER_WORKLOADS, make_job
+from repro_torch.configs import REGISTRY as ARCHS
 from repro_torch.core.dag import VIRTUAL
 from repro_torch.core.des import DESProblem, simulate
 from repro_torch.core.des_torch import DESOptions, EnsembleTorchDES, TorchDES
@@ -839,3 +840,77 @@ def test_serve_main_on_card(cuda, capsys):
     assert bool(torch.isfinite(out["logits"]).all())
     assert out["tokens"].shape == (2, 5)
     assert capsys.readouterr().out.startswith("[serve] qwen3-0.6b-smoke: ")
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One reduced train step of each registry architecture (with the
+    modality input of a vlm / encdec model) from one float32 state on the
+    card and on the CPU: loss rel 1e-5, grad norm rel 1e-4, parameters
+    within 2 lr (Adam's first step moves each element by about lr * g /
+    |g|), every state tensor on the card."""
+    import copy
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.data import SyntheticLM
+    cfg = ARCHS[arch].config.reduced()
+    ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=1)
+    card = ts.init_train_state(
+        cfg, ocfg, device=cuda, dtype=torch.float32,
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    host = {"params": copy.deepcopy(card["params"]).cpu(),
+            "opt": {"m": {n: t.cpu() for n, t in card["opt"]["m"].items()},
+                    "v": {n: t.cpu() for n, t in card["opt"]["v"].items()},
+                    "step": card["opt"]["step"].cpu()}}
+    xl = cfg.enc_tokens if cfg.encoder_layers else cfg.num_image_tokens
+    batch = SyntheticLM(vocab=cfg.vocab).batch(
+        0, 2, 16, (xl, cfg.d_model) if xl else None)
+    step = ts.make_train_step(cfg, ocfg, remat=False, has_xkv=bool(xl))
+    out = []
+    for dev, state in ((cuda, card), (torch.device("cpu"), host)):
+        state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                for k, v in batch.items()})
+        out.append((state, {k: float(v) for k, v in m.items()}))
+    (cs, cm), (hs, hm) = out
+    assert cm["loss"] == pytest.approx(hm["loss"], rel=1e-5)
+    assert cm["grad_norm"] == pytest.approx(hm["grad_norm"], rel=1e-4)
+    assert all(p.is_cuda for p in cs["params"].parameters())
+    assert all(t.is_cuda for t in (*cs["opt"]["m"].values(),
+                                   *cs["opt"]["v"].values(),
+                                   cs["opt"]["step"]))
+    host_params = dict(hs["params"].named_parameters())
+    for name, p in cs["params"].named_parameters():
+        assert float((p.detach().cpu() - host_params[name].detach())
+                     .abs().max()) <= 2 * ocfg.lr, name
+
+
+def test_checkpoint_save_and_restore_on_card(cuda, tmp_path):
+    """A train state on the card after one step: saved, restored onto the
+    card equal tensor for tensor, and restored onto the CPU (`device`)
+    equal as well."""
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as ts
+    from repro_torch.training.data import SyntheticLM
+    cfg = ARCHS["jamba-1.5-large-398b"].config.reduced()
+    ocfg = O.AdamWConfig(state_dtype=torch.bfloat16)
+    state = ts.init_train_state(
+        cfg, ocfg, device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    batch = SyntheticLM(vocab=cfg.vocab).batch(0, 2, 16)
+    state, _ = ts.make_train_step(cfg, ocfg)(
+        state, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+    path = ckpt.save(str(tmp_path), 1, state)
+    for device in (None, "cpu"):
+        back, step, _ = ckpt.restore(path, state, device=device)
+        assert step == 1
+        want = dict(state["params"].named_parameters())
+        for name, p in back["params"].named_parameters():
+            assert p.device.type == (device or "cuda")
+            assert p.dtype == want[name].dtype
+            assert torch.equal(p.detach().cpu(), want[name].detach().cpu())
+        for key in ("m", "v"):
+            for name, t in back["opt"][key].items():
+                assert t.dtype == torch.bfloat16
+                assert torch.equal(t.cpu(), state["opt"][key][name].cpu())
+        assert int(back["opt"]["step"]) == 1

@@ -203,12 +203,15 @@ def test_init_rejects_a_layer_count_off_the_pattern():
 
 def test_no_library_attention():
     """Attention is the reference's einsums, written out: no fused or
-    library attention anywhere in the model zoo or the serving path."""
+    library attention anywhere in the model zoo, the serving path or the
+    training path."""
     from pathlib import Path
     root = Path(TM.__file__).resolve().parents[1]
     files = [*(root / "models").glob("*.py"),
              root / "training" / "train_step.py",
-             root / "launch" / "serve.py"]
+             root / "training" / "optimizer.py",
+             root / "launch" / "serve.py",
+             root / "launch" / "train.py"]
     for path in files:
         text = path.read_text()
         for name in ("scaled_dot_product_attention", "MultiheadAttention",
