@@ -137,6 +137,31 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               microbatches against one batch (loss rel 1e-4, parameters
               5e-3).
 
+ 19. dist     the distributed tools: (a) a 1 x 1 mesh over a world-size-1
+              NCCL group (make_host_mesh(1, "cuda")), on which the
+              sharding rules place plain tensors, and serve.main and
+              train.main at qwen3-0.6b's full width through it:
+              serve.main's tokens and logits equal to [serve]'s, the
+              first loss equal to [train]'s, and the train path's losses
+              and parameters equal to a plain step loop's from the same
+              seed (deterministic kernels on both), bit for bit; (b)
+              mean_grads_int8 on the card at world size 1 (the gradients
+              unchanged, a zero residual), then the int8 ring on 4 gloo
+              ranks on the host against the exact sum at the reference
+              test's bounds; (c) the dry run's prediction for qwen3-0.6b
+              training at [train]'s shape (batch 8 x seq 128, float32)
+              on a 1 x 1 cuda mesh against the same step on the card:
+              the argument bytes against the bytes the allocator holds
+              for the placed state and batch, the FLOPs against a
+              FlopCounterMode count of the step, temporaries plus
+              arguments against the peak (printed, not gated); (d) the
+              reference quick test's 6 dry-run cells on the 2 x 16 x 16
+              mesh of 512 fake ranks, in a process of its own: 0 errors,
+              512 devices; (e) the legacy GA at gpt-7b on the card under
+              a generation cap: fill_maxmin once per trip, its x scored
+              on the card as on the numpy DES, the vectorized GA no
+              worse.
+
 The kernels phase also holds fill_maxmin's member axis against its plain
 version: a sweep of 1-3 members, and the two members of each [robust]
 ensemble at 96 lanes (the sequence-length pair shares one CSR; the
@@ -153,6 +178,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -265,6 +291,14 @@ TRAIN_FAMILIES = ("granite-moe-1b-a400m", "mamba2-130m")
 TRAIN_FAMILY_STEPS = 5
 TRAIN_ACCUM = 4
 TRAIN_ACCUM_LOSS_REL, TRAIN_ACCUM_PARAM_ABS = 1e-4, 5e-3
+# [dist]: steps of train.main against the plain step loop; the ring's
+# ranks and input (tests/test_distributed.py: seed 0, x of (4, 1000));
+# the reference quick dry-run test's cells; the legacy GA's depth
+DIST_TRAIN_STEPS = 5
+DIST_RING_RANKS, DIST_RING_SIZE = 4, 1000
+DIST_QUICK_ARCHS = ("qwen3-0.6b", "granite-moe-1b-a400m", "mamba2-130m")
+DIST_QUICK_SHAPES = ("train_4k", "decode_32k")
+DIST_GA_GENERATIONS = 6
 
 
 def fail(msg: str) -> None:
@@ -2471,11 +2505,12 @@ def _decode_trace(cfg, lm, wall_ms: float) -> None:
         f"events in the trace)")
 
 
-def phase_serve() -> None:
+def phase_serve():
     """The LM serving path on the card: `serve.main` at full width for
     SERVE_ARCHS; the same weights on the card and on the CPU; decode
     against the full forward at full width and for all ten registry
-    architectures at their reduced size."""
+    architectures at their reduced size.  Returns the tokens and last
+    logits of serve.main's warm qwen3-0.6b run."""
     import copy
     import gc
     import torch
@@ -2489,6 +2524,8 @@ def phase_serve() -> None:
         for tag in tags:
             out = _serve_main(arch, tag or "once")
         walls[arch] = out["decode_s"] * 1e3 / SERVE_STEPS
+        if arch == SERVE_ARCHS[0]:
+            first = (out["tokens"], out["logits"].cpu())
         del out
     for arch in SERVE_ARCHS:
         if arch not in SERVE_CPU_ARCHS + SERVE_DECODE_ARCHS:
@@ -2540,6 +2577,7 @@ def phase_serve() -> None:
         f"on the card, rel err: "
         f"{', '.join(f'{a} {e:.3e}' for a, e in errs.items())}")
     log(f"[serve] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return first
 
 
 def _xkv_len(cfg) -> int:
@@ -2770,18 +2808,18 @@ def _train_steady(state: dict) -> None:
         fail("[train] the full-width checkpoint did not restore")
 
 
-def phase_train() -> int:
+def phase_train() -> float:
     """LM training on the card: `launch.train.main` at full width with a
     failure and its replay, steady steps timed, a checkpoint's save and
     restore, the card against the CPU, the other families at full width
-    and accumulation; returns [train]'s fill_maxmin launches."""
+    and accumulation; returns main's first loss."""
     import gc
     import torch
     from repro_torch.configs import REGISTRY
     t_phase = time.perf_counter()
     log(f"[train] card: {_card()}")
     out = _train_main()
-    maxmin = out["maxmin"]
+    first_loss = out["losses"][0]
     state = out.pop("state")
     del out
     _train_steady(state)
@@ -2867,7 +2905,306 @@ def phase_train() -> int:
     if loss_err > TRAIN_ACCUM_LOSS_REL or p_err > TRAIN_ACCUM_PARAM_ABS:
         fail(f"[train] accumulation: loss {loss_err}, parameters {p_err}")
     log(f"[train] phase wall {time.perf_counter() - t_phase:.1f} s")
-    return maxmin
+    return first_loss
+
+
+_RING = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def rank_main(rank, n, xfile, out, store):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=n)
+    from repro_torch.distributed.compression import ring_allreduce_int8
+    total, res = ring_allreduce_int8(torch.from_numpy(np.load(xfile)[rank]))
+    np.savez(f"{out}.{rank}.npz", total=total.numpy(), res=res.numpy())
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    n = int(sys.argv[1])
+    mp.spawn(rank_main, args=(n, *sys.argv[2:5]), nprocs=n)
+"""
+
+
+def _dist_serve_train(mesh, serve_first, train_first: float) -> None:
+    """(a): serve.main and train.main at full width through the 1 x 1
+    mesh against [serve]'s and [train]'s results and a plain step loop."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch import serve, train
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as ts
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = serve.main(["--arch", TRAIN_ARCH, "--batch", str(SERVE_BATCH),
+                          "--prompt-len", str(SERVE_PROMPT),
+                          "--decode-steps", str(SERVE_STEPS),
+                          "--model-parallel", "1"])
+    same_tok = torch.equal(out["tokens"], serve_first[0])
+    same_logits = torch.equal(out["logits"].cpu(), serve_first[1])
+    log(f"[dist] serve.main {TRAIN_ARCH} through the 1 x 1 mesh: tokens "
+        f"{'equal' if same_tok else 'DIFFERENT'}, last logits "
+        f"{'equal' if same_logits else 'DIFFERENT'} to [serve]'s, bit for "
+        f"bit")
+    if not (same_tok and same_logits):
+        fail("[dist] serve.main on the mesh differs from [serve]")
+    del out
+    cfg = REGISTRY[TRAIN_ARCH].config
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = train.main(["--arch", TRAIN_ARCH, "--steps",
+                              str(DIST_TRAIN_STEPS), "--log-every", "100",
+                              "--model-parallel", "1"])
+        ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=5)
+        state = ts.init_train_state(
+            cfg, ocfg, device="cuda", dtype=torch.float32,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        step = ts.make_train_step(cfg, ocfg, remat=False)
+        losses = []
+        for i in range(DIST_TRAIN_STEPS):
+            state, m = step(state, _train_batch(cfg, i, TRAIN_BATCH,
+                                                TRAIN_SEQ, "cuda"))
+            losses.append(float(m["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = dict(state["params"].named_parameters())
+    same_p = all(torch.equal(p, want[n]) and not hasattr(p, "placements")
+                 for n, p in run["state"]["params"].named_parameters())
+    log(f"[dist] train.main {TRAIN_ARCH} through the 1 x 1 mesh, "
+        f"{DIST_TRAIN_STEPS} steps (deterministic kernels): losses "
+        f"{run['losses']}; the plain step loop's {losses}; parameters "
+        f"{'equal' if same_p else 'DIFFERENT'}; first loss "
+        f"{run['losses'][0]!r} vs [train]'s {train_first!r}")
+    if run["losses"] != losses or not same_p or \
+            run["losses"][0] != train_first:
+        fail("[dist] train.main on the mesh differs from the plain step")
+    del run, state, step, want
+
+
+def _dist_ring() -> None:
+    """(b): the int8 ring at world size 1 on the card (NCCL), then on
+    DIST_RING_RANKS gloo ranks on the host."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import mean_grads_int8
+    g = {"w": torch.randn(64, 33, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))}
+    means, res = mean_grads_int8(g)
+    ok1 = torch.equal(means["w"], g["w"]) and \
+        not bool(res["w"].any()) and res["w"].is_cuda
+    log(f"[dist] mean_grads_int8 on the card, {dist.get_backend()} world "
+        f"of {dist.get_world_size()}: gradients "
+        f"{'unchanged' if ok1 else 'CHANGED'}, residual zero {ok1}")
+    if not ok1:
+        fail("[dist] mean_grads_int8 at world size 1")
+    x = np.random.default_rng(0).standard_normal(
+        (DIST_RING_RANKS, DIST_RING_SIZE)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "x.npy", x)
+        (tmp / "ring.py").write_text(_RING)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, str(tmp / "ring.py"), str(DIST_RING_RANKS),
+             str(tmp / "x.npy"), str(tmp / "out"), str(tmp / "store")],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"[dist] the gloo ring failed: {run.stderr[-2000:]}")
+        outs = [np.load(tmp / f"out.{r}.npz") for r in range(DIST_RING_RANKS)]
+    total = np.stack([o["total"] for o in outs])
+    res = np.stack([o["res"] for o in outs])
+    scale = np.abs(x).max() * DIST_RING_RANKS / 127
+    err = float(np.abs(total - x.sum(axis=0)[None]).max())
+    agree = all(np.array_equal(total[0], t) for t in total)
+    log(f"[dist] int8 ring on {DIST_RING_RANKS} gloo ranks, x of "
+        f"{x.shape} (seed 0): max error to the exact sum {err:.3e} (bound "
+        f"{4 * scale + 1e-5:.3e}), ranks agree {agree}, max |residual| "
+        f"{float(np.abs(res).max()):.3e} (bound {scale + 1e-6:.3e}); "
+        f"{wall:.1f} s")
+    if not (err <= 4 * scale + 1e-5 and agree
+            and np.abs(res).max() <= scale + 1e-6):
+        fail("[dist] the int8 ring misses the reference test's bounds")
+
+
+def _dist_predict(mesh) -> None:
+    """(c): the dry run's prediction for [train]'s step on the 1 x 1 mesh
+    against the card."""
+    import gc
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import REGISTRY, ShapeSpec
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import costanalysis, dryrun
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as ts
+    arch = REGISTRY[TRAIN_ARCH]
+    cfg = arch.config
+    shape = ShapeSpec("train_8x128", "train", TRAIN_SEQ, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell(TRAIN_ARCH, arch, shape, mesh, "1x1_cuda",
+                           dtype=torch.float32)
+    if cell["status"] != "ok":
+        fail(f"[dist] run_cell: {cell.get('error')}")
+    mem = cell["memory"]
+    log(f"[dist] run_cell {TRAIN_ARCH} train batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ} float32 on the 1 x 1 mesh ({time.perf_counter() - t0:.1f}"
+        f" s on meta): accum_steps {cell['accum_steps']}, arguments "
+        f"{mem['argument_bytes']} B, outputs {mem['output_bytes']} B, "
+        f"temporaries {mem['temp_bytes']} B, {cell['flops_per_device']:.0f} "
+        f"FLOPs, {cell['bytes_per_device']:.0f} bytes, "
+        f"{cell['collectives']['count']:.0f} collectives")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    ocfg = O.AdamWConfig(state_dtype=dryrun._state_dtype(cfg))
+    state = ts.init_train_state(
+        cfg, ocfg, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    state = shd.place(state, shd.named(
+        shd.tree_specs(state, mesh, "state", cfg=cfg), mesh))
+    batch = {k: v.to(torch.int32) for k, v in
+             _train_batch(cfg, 0, TRAIN_BATCH, TRAIN_SEQ, "cuda").items()}
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    req = torch.cuda.memory_stats()["requested_bytes.all.current"] - base_req
+    exact = costanalysis.local_bytes((state, batch))
+    log(f"[dist] placed on the card: {exact} B in the state's and batch's "
+        f"tensors, the allocator's requested bytes {req}, memory_allocated "
+        f"{alloc} (its blocks, rounded up); predicted arguments "
+        f"{mem['argument_bytes']} B")
+    if not mem["argument_bytes"] == exact == req:
+        fail(f"[dist] argument bytes: predicted {mem['argument_bytes']}, "
+             f"tensors {exact}, requested {req}")
+    step = ts.make_train_step(cfg, ocfg, accum_steps=cell["accum_steps"],
+                              remat=True, mesh=mesh,
+                              data_axes=shd.data_axes(mesh))
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    flops = fc.get_total_flops()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    pred = mem["temp_bytes"] + mem["argument_bytes"]
+    log(f"[dist] the step on the card (accum {cell['accum_steps']}, remat):"
+        f" FlopCounterMode {flops} FLOPs, predicted "
+        f"{cell['flops_per_device']:.0f}: {flops / F32_PEAK * 1e3:.3f} ms "
+        f"at {F32_PEAK:.3g} FLOP/s (one step {wall_ms:.3f} ms); peak "
+        f"{peak} B allocated above the baseline, predicted temporaries + "
+        f"arguments {pred} B, ratio {pred / peak:.4f}")
+    if flops != cell["flops_per_device"]:
+        fail(f"[dist] FLOPs: card {flops}, predicted "
+             f"{cell['flops_per_device']}")
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dist_dryrun() -> None:
+    """(d): the quick cells on the 2 x 16 x 16 mesh, in a process of its
+    own (the fake process group is process-global)."""
+    out_dir = ROOT / "build" / "dist_dryrun"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--quick",
+         "--arch", ",".join(DIST_QUICK_ARCHS),
+         "--shape", ",".join(DIST_QUICK_SHAPES), "--mesh", "multi",
+         "--out", str(out_dir)], capture_output=True, text=True,
+        timeout=600, cwd=ROOT, env={**os.environ,
+                                    "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    cells = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+    for c in cells:
+        if c["status"] == "ok":
+            log(f"[dist] dry run {c['mesh']} {c['arch']} {c['shape']}: "
+                f"{c['devices']} devices, {c['flops_per_device']:.0f} "
+                f"FLOPs/device, arguments {c['memory']['argument_bytes']} "
+                f"B, collectives {json.dumps(c['collectives'])}")
+    errors = sum(c["status"] == "error" for c in cells)
+    log(f"[dist] dry run, {len(cells)} quick cells: "
+        f"{sum(c['status'] == 'ok' for c in cells)} ok, {errors} errors "
+        f"({wall:.1f} s)")
+    if run.returncode != 0 or errors or len(cells) != \
+            len(DIST_QUICK_ARCHS) * len(DIST_QUICK_SHAPES) or \
+            any(c.get("devices") != 512 for c in cells):
+        fail(f"[dist] dry run: rc {run.returncode}: "
+             f"{run.stdout[-1500:]} {run.stderr[-1500:]}")
+
+
+def _dist_legacy_ga() -> int:
+    """(e): the legacy GA at gpt-7b on the card; returns its fill_maxmin
+    launches."""
+    import numpy as np
+    from repro_torch.configs import PAPER_WORKLOADS, make_job
+    from repro_torch.core import _ga_legacy as legacy
+    from repro_torch.core.des import DESProblem, simulate
+    from repro_torch.core.ga import GAOptions, delta_fast
+    from repro_torch.core.schedule import build_comm_dag
+    dag = build_comm_dag(make_job(PAPER_WORKLOADS["gpt-7b"]), 400.0)
+    kw = dict(seed=0, max_generations=DIST_GA_GENERATIONS, patience=10**9,
+              time_limit=1e9)
+    _reset_counts()
+    t0 = time.perf_counter()
+    old = legacy.delta_fast(dag, legacy.GAOptions(**kw))
+    wall = time.perf_counter() - t0
+    c = _counts()
+    new = delta_fast(dag, GAOptions(**kw))
+    exact = simulate(DESProblem(dag), old.x).makespan
+    log(f"[dist] legacy GA gpt-7b ({dag.num_tasks} tasks), "
+        f"{old.generations} generations of {legacy.GAOptions().pop_size} "
+        f"genomes on the card: {wall:.1f} s, {old.evaluations} "
+        f"evaluations, {c['trips']:.0f} trips, {c['maxmin']} fill_maxmin "
+        f"launches; makespan {old.makespan!r} (numpy DES {exact!r}), "
+        f"{int(old.x.sum())} ports; the vectorized GA {new.makespan!r}")
+    if c["maxmin"] != c["trips"] or c["maxmin"] == 0:
+        fail(f"[dist] legacy GA: {c['maxmin']} fill_maxmin launches for "
+             f"{c['trips']:.0f} trips")
+    if old.makespan != exact or not new.makespan <= old.makespan * \
+            (1 + 1e-9):
+        fail(f"[dist] legacy GA makespan {old.makespan} (numpy {exact}), "
+             f"vectorized {new.makespan}")
+    _card_vs_numpy("dist", "the legacy GA's topology", dag, [old.x], [0])
+    return c["maxmin"]
+
+
+def phase_dist(serve_first, train_first: float) -> int:
+    """The distributed tools on the card, (a)-(e) of the module's
+    docstring; returns the legacy GA's fill_maxmin launches."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    log(f"[dist] card: {_card()}")
+    mesh = make_host_mesh(1, "cuda")
+    log(f"[dist] mesh {mesh}: backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, axes {shd.axis_sizes(mesh)}")
+    if dist.get_backend() != "nccl" or shd.axis_sizes(mesh) != \
+            {"data": 1, "model": 1}:
+        fail("[dist] make_host_mesh(1, 'cuda') is not a 1 x 1 NCCL mesh")
+    _dist_serve_train(mesh, serve_first, train_first)
+    _dist_ring()
+    _dist_predict(mesh)
+    _dist_dryrun()
+    launches = _dist_legacy_ga()
+    log(f"[dist] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2912,8 +3249,10 @@ def main() -> int:
     fleet_matvec = timed("fleet", phase_fleet)
     timed("cli", phase_cli, jamba)
     timed("examples", phase_examples)
-    timed("serve", phase_serve)
-    timed("train", phase_train)
+    serve_first = timed("serve", phase_serve)
+    train_first = timed("train", phase_train)
+    maxmin["dist_launches"] = timed("dist", phase_dist, serve_first,
+                                    train_first)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s"
         f", the build included; s per phase {walls}")
     log(json.dumps({"kernels": [waterfill, maxmin, tclosure, maxplus,

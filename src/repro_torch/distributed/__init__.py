@@ -1,4 +1,4 @@
 """Distributed training support of the port: `fault_tolerance` (the
-straggler watchdog, fault injection and the resilient step loop).  The
-sharding rules, gradient compression and the dry-run are not ported
-yet."""
+straggler watchdog, fault injection and the resilient step loop),
+`sharding` (the reference's sharding rules as DTensor placements) and
+`compression` (the int8 ring all-reduce with error feedback)."""

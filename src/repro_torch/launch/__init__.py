@@ -1,2 +1,4 @@
 """Entry points of the port: `topo_plan` (the control-plane CLI), `serve`
-(batched decode serving) and `train` (the training driver)."""
+(batched decode serving), `train` (the training driver) and `dryrun` (the
+multi-pod dry run, with its meshes in `mesh` and its cost model in
+`costanalysis`)."""

@@ -6,8 +6,11 @@
 Parameters and cache are float32, drawn on `--device` (default cuda;
 without a CUDA device, pass --device cpu) from a generator seeded with
 `--seed`; the prompt (and the modality input of a vlm / encdec model)
-comes from a CPU generator with the same seed.  `--model-parallel` is
-accepted and comes to 1 on one device.
+comes from a CPU generator with the same seed.  Parameters and cache are
+placed on a ("data", "model") mesh of the process group's ranks
+(`launch.mesh.make_host_mesh(--model-parallel)`) by the sharding rules,
+as the reference places them; on one device every placement is the
+identity.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import time
 import torch
 
 from repro_torch.configs import REGISTRY
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.training import train_step as ts
 
@@ -47,13 +52,18 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = REGISTRY[args.arch].config
     if args.reduce:
         cfg = cfg.reduced()
+    mesh = make_host_mesh(args.model_parallel, device)
     params = M.LM(cfg, dtype=torch.float32, device=device,
                   generator=torch.Generator(device=device)
                   .manual_seed(args.seed))
+    params = shd.place(params, shd.named(
+        shd.tree_specs(params, mesh, "params", cfg=cfg), mesh))
     max_len = args.prompt_len + args.decode_steps
     xl = cfg.enc_tokens if cfg.encoder_layers else cfg.num_image_tokens
     cache = M.init_cache(cfg, args.batch, max_len, dtype=torch.float32,
                          enc_len=xl, device=device)
+    cache = shd.place(cache, shd.named(shd.tree_specs(cache, mesh, "cache"),
+                                       mesh))
 
     has_xkv = bool(xl)
     prefill = ts.make_prefill_step(cfg, has_xkv=has_xkv)

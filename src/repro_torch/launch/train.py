@@ -15,8 +15,11 @@ Features (the reference's `repro.launch.train`; all run on the CPU with
 
 Parameters and AdamW moments are float32 on `--device` (default cuda;
 without a CUDA device, pass --device cpu), drawn from a generator seeded
-with `--seed`; batches are made on the host with numpy.
-`--model-parallel` is accepted and comes to 1 on one device.
+with `--seed`; batches are made on the host with numpy.  The state is
+placed on a ("data", "model") mesh of the process group's ranks
+(`launch.mesh.make_host_mesh(--model-parallel)`, a world of one rank
+unless `torchrun` started the process) by the sharding rules, as the
+reference places it; on one device every placement is the identity.
 """
 from __future__ import annotations
 
@@ -27,9 +30,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import REGISTRY, make_job
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.fault_tolerance import (FailureInjector,
                                                      StepWatchdog,
                                                      run_resilient)
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import optimizer as opt
 from repro_torch.training import train_step as ts
@@ -105,13 +110,17 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = REGISTRY[args.arch].config
     if args.reduce:
         cfg = cfg.reduced()
+    mesh = make_host_mesh(args.model_parallel, device)
     ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5))
     state = ts.init_train_state(
         cfg, ocfg, device=device,
         generator=torch.Generator(device=device).manual_seed(args.seed),
         dtype=torch.float32)
+    state = shd.place(state, shd.named(
+        shd.tree_specs(state, mesh, "state", cfg=cfg), mesh))
     step_fn = ts.make_train_step(cfg, ocfg, accum_steps=args.accum,
-                                 remat=False)
+                                 remat=False, mesh=mesh,
+                                 data_axes=shd.data_axes(mesh))
     data = SyntheticLM(vocab=cfg.vocab, seed=args.seed)
 
     start_step = 0

@@ -11,22 +11,168 @@ the reference is mirrored, so a bf16 model rounds where the reference
 does.  Attention is written out in einsums: no fused or library
 attention, as parity is held against the reference's einsums.
 
-The reference's sharding hints (`sharding_hints`, `constrain_batch`,
-`_seq_shard`) are identities without a mesh and are not ported here.
+`sharding_hints` (alias `attention_hints`) installs the reference's
+sharding hints for a run on a mesh: `constrain_batch` pins (B, ...)
+activations to batch sharding over the data axes at layer and MoE
+boundaries (and, with `seq_parallel`, sequence-shards the layer
+boundaries over the model axis); `_seq_shard` sequence-shards q/k/v
+inside attention (Ulysses-style, for head counts that do not divide the
+model axis: qwen2.5's 40 heads, whisper's 20 on a 16-way axis).  Each is
+a `DTensor.redistribute` to the reference's spec; with no hints
+installed, or on a plain tensor, it returns its input unchanged.  The
+MoE's per-sequence sort and scatter run on each device's batch shard
+(`_batch_local`, under `local_map`), where the reference's `vmap` keeps
+them local to the batch shard.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (P, axis_sizes, data_axes,
+                                              device_mesh, placements)
 
 DENSE_ATTN_MAX_KV = 8192   # use dense masked attention up to this KV length
 NEG = -1e30                # the reference's mask fill
+
+
+_HINTS: contextvars.ContextVar[dict | None] = \
+    contextvars.ContextVar("sharding_hints", default=None)
+
+
+@contextlib.contextmanager
+def sharding_hints(mesh, data_axes: tuple[str, ...],
+                   model_axes: tuple[str, ...] = ("model",),
+                   seq_shard: bool = False, seq_parallel: bool = False):
+    """Install sharding hints for a run on `mesh`.
+
+    batch pinning (always): activations keep the batch dim on the data axes
+    at layer/MoE boundaries.
+    seq_shard: Ulysses-style q/k/v sequence sharding inside attention (for
+    head counts that do not divide the model axis).
+    seq_parallel: Megatron-SP-style sequence sharding of the *layer
+    boundary* activations over the model axis -- shrinks the remat carry
+    stack by the model-axis size.
+    """
+    token = _HINTS.set({"mesh": mesh, "data": data_axes,
+                        "model": model_axes, "seq_shard": seq_shard,
+                        "seq_parallel": seq_parallel})
+    try:
+        yield
+    finally:
+        _HINTS.reset(token)
+
+
+# the reference's alias
+attention_hints = sharding_hints
+
+
+def _size(hints: dict, axes: tuple[str, ...]) -> int:
+    sizes = axis_sizes(hints["mesh"])
+    return math.prod(sizes[a] for a in axes)
+
+
+def _redistribute(x: torch.Tensor, spec: P, hints: dict) -> torch.Tensor:
+    want = placements(spec, hints["mesh"])
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(device_mesh(hints["mesh"]), want)
+
+
+def constrain_batch(x: torch.Tensor, boundary: bool = False
+                    ) -> torch.Tensor:
+    """Pin (B, ...) activations to batch sharding over the data axes.
+
+    Without this, the partitioner may resolve FSDP weight contractions by
+    *replicating* the batch and all-reducing partial sums.
+
+    boundary=True additionally sequence-shards dim 1 over the model axes
+    when seq_parallel is enabled (layer-boundary activations only).
+    """
+    hints = _HINTS.get()
+    if hints is None or not isinstance(x, DTensor) or x.ndim < 2:
+        return x
+    data = hints["data"]
+    dsize = _size(hints, data)
+    if dsize <= 1 or x.shape[0] % dsize:
+        return x
+    rest: list = [None] * (x.ndim - 1)
+    if boundary and hints.get("seq_parallel") and x.ndim >= 3:
+        model = hints["model"]
+        msize = _size(hints, model)
+        if msize > 1 and x.shape[1] % msize == 0 and x.shape[1] >= msize:
+            rest[0] = model if len(model) > 1 else model[0]
+    return _redistribute(x, P(data if len(data) > 1 else data[0], *rest),
+                         hints)
+
+
+def _seq_shard(x: torch.Tensor) -> torch.Tensor:
+    """Constrain (B, S, heads, hd) to (data, model, None, None)."""
+    hints = _HINTS.get()
+    if hints is None or not hints["seq_shard"] or \
+            not isinstance(x, DTensor) or x.ndim != 4:
+        return x
+    model = hints["model"]
+    msize = _size(hints, model)
+    if x.shape[1] % msize or x.shape[1] < msize:
+        return x
+    return _redistribute(
+        x, P(hints["data"], model if len(model) > 1 else model[0], None,
+             None), hints)
+
+
+def _batch_local(fn, n_out: int, batch_args: tuple,
+                 param_args: tuple = ()):
+    """fn(*batch_args, *param_args), computed per batch shard: directly on
+    plain tensors; on DTensors (a run on a mesh) under `local_map`, the
+    (B, ...) `batch_args` batch-sharded over the data axes where B
+    divides (else replicated), the parameters replicated, and the `n_out`
+    outputs batch-sharded alike.  This is where the reference's `vmap`
+    over sequences keeps a sort or scatter local to the batch shard, for
+    which DTensor has no sharding rule."""
+    args = (*batch_args, *param_args)
+    if not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    hints = _HINTS.get()
+    mesh = hints["mesh"] if hints is not None else \
+        next(a for a in args if isinstance(a, DTensor)).device_mesh
+    data = data_axes(mesh)
+    b = batch_args[0].shape[0]
+    spec = P(data if b % math.prod(axis_sizes(mesh)[a] for a in data) == 0
+             else None)
+    batch = placements(spec, mesh)
+    rep = placements(P(), mesh)
+    # a replicated parameter's gradient: partial sums over the batch shards
+    grad = tuple(Partial() if isinstance(b, Shard) else Replicate()
+                 for b in batch)
+    f = local_map(fn, out_placements=(batch,) * n_out,
+                  device_mesh=device_mesh(mesh),
+                  in_placements=(*(batch,) * len(batch_args),
+                                 *(rep,) * len(param_args)),
+                  in_grad_placements=(*(batch,) * len(batch_args),
+                                      *(grad,) * len(param_args)),
+                  redistribute_inputs=True)
+    return f(*args)
+
+
+def _lookup(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    return embed[tokens]
+
+
+def embed_lookup(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """The (B, S, d) rows of `embed` for `tokens`: an index on plain
+    tensors; on a mesh, each batch shard indexes the whole table (DTensor
+    shards no lookup into a sharded table both ways)."""
+    return _batch_local(_lookup, 1, (tokens,), (embed,))
 
 
 def _normal(shape, std: float, dtype, device, generator) -> nn.Parameter:
@@ -80,8 +226,9 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     back to q's dtype before the PV product."""
     _, sq, h, hd = q.shape
     sk = k.shape[1]
-    ke = _expand_kv(k, h)
-    ve = _expand_kv(v, h)
+    q = _seq_shard(q)
+    ke = _seq_shard(_expand_kv(k, h))
+    ve = _seq_shard(_expand_kv(v, h))
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bqhd,bshd->bhqs", q.float(), ke.float()) * scale
     if causal:
@@ -101,6 +248,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `q_offset`.  q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd)."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
+    q = _seq_shard(q)
     scale = 1.0 / math.sqrt(hd)
     qf = q.float() * scale
     nblk = -(-sk // kv_block)
@@ -282,11 +430,29 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     cfg.moe_capacity) drop in token order, as `jnp.argsort`'s do; they
     land in the drop bin E*C, whose row is discarded.
     """
+    x = constrain_batch(x)   # sorts/scatters below defeat propagation
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     c = int(max(1, math.ceil(s * k / e * cfg.moe_capacity)))
+    xe, buf_slot, tok, keep, g = _batch_local(
+        functools.partial(_moe_dispatch, e=e, k=k, c=c), 5, (x,),
+        (p.router,))
+    h = F.silu(torch.einsum("becd,edf->becf", xe, p.wg)) * \
+        torch.einsum("becd,edf->becf", xe, p.wi)
+    ye = torch.einsum("becf,efd->becd", h, p.wo).reshape(b, e * c, d)
+    out = _batch_local(functools.partial(_moe_combine, s=s), 1,
+                       (ye, buf_slot, tok, keep, g))
+    return constrain_batch(out)
+
+
+def _moe_dispatch(x: torch.Tensor, router: torch.Tensor, *, e: int, k: int,
+                  c: int):
+    """Route each sequence's tokens: the (B, E, C, D) expert buffers, and
+    for each (token, choice) pair in expert order its buffer slot (E*C:
+    the drop bin), token, whether it was kept and its gate."""
+    b, s, d = x.shape
     dev = x.device
-    logits = x.float() @ p.router                               # (B, S, E)
+    logits = x.float() @ router                                 # (B, S, E)
     gates, idx = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     flat_e = idx.reshape(b, s * k)
@@ -304,17 +470,24 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     xbuf = torch.zeros((b, e * c + 1, d), dtype=x.dtype, device=dev)
     xbuf[rows, buf_slot] = x[rows, tok]
     xe = xbuf[:, :-1].reshape(b, e, c, d)
-    h = F.silu(torch.einsum("becd,edf->becf", xe, p.wg)) * \
-        torch.einsum("becd,edf->becf", xe, p.wi)
-    ye = torch.einsum("becf,efd->becd", h, p.wo).reshape(b, e * c, d)
+    g = torch.gather(gates.reshape(b, s * k), 1, order)
+    return xe, buf_slot, tok, keep, g
+
+
+def _moe_combine(ye: torch.Tensor, buf_slot: torch.Tensor, tok: torch.Tensor,
+                 keep: torch.Tensor, g: torch.Tensor, *, s: int
+                 ) -> torch.Tensor:
+    """The experts' (B, E*C, D) outputs gathered back to their (B, S, D)
+    tokens, each pair weighted by its gate (a dropped pair adds 0)."""
+    b, _, d = ye.shape
+    dev = ye.device
     ye = torch.cat([ye, torch.zeros((b, 1, d), dtype=ye.dtype, device=dev)],
                    dim=1)
-    g = torch.gather(gates.reshape(b, s * k), 1, order)
+    rows = torch.arange(b, device=dev)[:, None]
     contrib = ye[rows, buf_slot] * g[..., None].to(ye.dtype) * \
         keep[..., None]
-    out = torch.zeros((b * s, d), dtype=x.dtype, device=dev)
-    out.index_add_(0, (rows * s + tok).reshape(-1),
-                   contrib.reshape(b * s * k, d).to(x.dtype))
+    out = torch.zeros((b * s, d), dtype=ye.dtype, device=dev)
+    out.index_add_(0, (rows * s + tok).reshape(-1), contrib.reshape(-1, d))
     return out.reshape(b, s, d)
 
 
@@ -362,7 +535,10 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         ctx = torch.cat([state, xbc], dim=1)
         new_state = ctx[:, -(k - 1):, :] if k > 1 else state
     else:
-        ctx = F.pad(xbc, (0, 0, k - 1, 0))
+        # zeros before the sequence (a concatenation, which DTensor
+        # shards as the sequence is, where padding loses the placement)
+        ctx = torch.cat([xbc.new_zeros((xbc.shape[0], k - 1, xbc.shape[2])),
+                         xbc], dim=1)
         new_state = ctx[:, -(k - 1):, :] if k > 1 else None
     out = sum(ctx[:, i:i + xbc.shape[1], :] * w[i] for i in range(k))
     return F.silu(out + b), new_state
@@ -398,9 +574,12 @@ def mamba_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     else:
         xbc_conv, conv_state = _causal_conv(xbc, p.conv_w, p.conv_b)
         xs, bm, cm = torch.split(xbc_conv, [d_in, n, n], dim=-1)
-        y, ssm_state = _ssd_chunked(
-            xs.reshape(b, s, nh, hd).float(), dt, a, bm.float(), cm.float(),
-            chunk)
+        # per sequence, so on a mesh each batch shard scans its own (the
+        # scan's cumulative sums have no sharding rule both ways)
+        y, ssm_state = _batch_local(
+            functools.partial(_ssd_batch, chunk=chunk), 2,
+            (xs.reshape(b, s, nh, hd).float(), dt, bm.float(), cm.float()),
+            (a,))
     new_cache = None
     if cache is not None:
         cache["conv"].copy_(conv_state)
@@ -409,6 +588,10 @@ def mamba_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     yf = y.reshape(b, s, d_in).to(x.dtype)
     out = rmsnorm(yf * F.silu(z), p.norm_w, cfg.norm_eps)
     return out @ p.out_proj, new_cache
+
+
+def _ssd_batch(xh, dt, bm, cm, a, *, chunk: int):
+    return _ssd_chunked(xh, dt, a, bm, cm, chunk)
 
 
 def _ssd_chunked(xh, dt, a, bm, cm, chunk: int):

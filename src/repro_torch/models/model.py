@@ -133,6 +133,8 @@ def _apply_layer(cfg: ModelConfig, j: int, p: Layer, x: torch.Tensor,
                  positions, cache_j, xkv, pos_scalar: int) -> torch.Tensor:
     """One layer; its cache (`cache_j`), when given, is written in
     place."""
+    # layer boundary: batch on data axes (+ optional SP)
+    x = L.constrain_batch(x, boundary=True)
     if cfg.is_attn_layer(j):
         attn_cache = None
         if cache_j is not None:
@@ -200,7 +202,7 @@ def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     """
     _, s = tokens.shape
     dev = tokens.device
-    x = params.embed[tokens]
+    x = L.embed_lookup(tokens, params.embed)
     pos_scalar = cache["pos"] if cache is not None else 0
     positions = pos_scalar + torch.arange(s, device=dev)
     # modality source for cross-attention: encoder output (encdec) or raw
@@ -238,5 +240,7 @@ def loss_fn(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     logits, _ = forward(cfg, params, tokens, xkv=xkv, remat=remat)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.mean(logz - gold)
+    # (B, S, 1) as the gather gives it: on a mesh, the masked partial
+    # result of a gather from vocab-sharded logits keeps that rank
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    return torch.mean(logz[..., None] - gold)

@@ -93,15 +93,20 @@ def latest(directory: str) -> str | None:
 
 
 def restore(path: str, template: dict,
-            device: torch.device | str | None = None
-            ) -> tuple[dict, int, dict]:
+            device: torch.device | str | None = None,
+            shardings: dict | None = None) -> tuple[dict, int, dict]:
     """Restore into the structure of the train state `template`: returns
     (a new train state, its step, the manifest's extra).
 
     Each leaf is cast to the template's dtype, as the reference's restore
-    casts, and placed on `device` (default: the template leaf's).  Raises
-    KeyError for a leaf the checkpoint lacks and ValueError for a shape
-    that differs from the template's.
+    casts, and placed on `device` (default: the template leaf's).
+    shardings: optional tree of `sharding.NamedSharding` matching the
+    state (`sharding.named(sharding.tree_specs(state, mesh, "state"),
+    mesh)`); when given each leaf is placed with its sharding (elastic
+    restore onto whatever mesh the shardings reference; on a mesh of one
+    device, plain tensors on its device).  Raises KeyError for a leaf the
+    checkpoint lacks and ValueError for a shape that differs from the
+    template's.
     """
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -136,4 +141,7 @@ def restore(path: str, template: dict,
     state = {"params": params,
              "opt": {"m": out["opt/m"], "v": out["opt/v"],
                      "step": read("opt/step", step, tuple(step.shape))}}
+    if shardings is not None:
+        from repro_torch.distributed import sharding
+        state = sharding.place(state, shardings)
     return state, int(manifest["step"]), manifest.get("extra", {})

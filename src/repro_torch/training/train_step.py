@@ -3,9 +3,9 @@
 
 `make_train_step` builds a (state, batch) -> (state, metrics) function:
 gradients by autograd of the plain model (microbatches accumulated in
-float32 buffers), per-layer remat, then the AdamW update in place.  The
-reference's `mesh`/`data_axes` are left out: on one device they are
-identities (the sharding rules are not ported yet).
+float32 buffers), per-layer remat, then the AdamW update in place.  On a
+mesh (parameters and batch DTensors, placed by
+`distributed.sharding`), the same code runs sharded.
 
 `make_prefill_step` / `make_decode_step` are the serving entry points;
 `make_forward_loss` is the forward-only evaluation loss.  Each of these
@@ -15,15 +15,19 @@ reference's jitted steps donate it.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.training import optimizer as opt
 
 
 def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig,
                     accum_steps: int = 1, remat: bool = True,
-                    has_xkv: bool = False):
+                    has_xkv: bool = False, mesh=None,
+                    data_axes: tuple[str, ...] = ()):
     """Returns train_step(state, batch) -> (state, metrics).
 
     state = {"params": LM, "opt": optimizer state}; the parameters and
@@ -31,7 +35,20 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig,
     leading global-batch dim; accum_steps splits it into microbatches.
     metrics = {"loss", "grad_norm", "step"}, 0-d tensors on the device
     (the step reads nothing back to the host).
+    mesh/data_axes: when given, the reshaped (accum, micro, ...) batch of a
+    sharded step is redistributed to keep the *micro* dim on the data
+    axes -- else the reshape leaves the data sharding on the accumulation
+    dim and every microstep runs on a fraction of the devices.
     """
+
+    def _constrain_micro(x):
+        if mesh is None or not data_axes or x is None or \
+                not isinstance(x, DTensor):
+            return x
+        want = sharding.placements(
+            sharding.P(None, data_axes, *([None] * (x.ndim - 2))), mesh)
+        return x if tuple(x.placements) == want else \
+            x.redistribute(sharding.device_mesh(mesh), want)
 
     def grads_of(params: M.LM, tokens, labels, xkv):
         names, leaves = zip(*params.named_parameters())
@@ -49,8 +66,8 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig,
             mb = tokens.shape[0] // accum_steps
 
             def micro(x):
-                return None if x is None else \
-                    x.reshape(accum_steps, mb, *x.shape[1:])
+                return None if x is None else _constrain_micro(
+                    x.reshape(accum_steps, mb, *x.shape[1:]))
 
             tok, lab, xk = micro(tokens), micro(labels), micro(xkv)
             # float32 accumulators: .grad would sum in the parameters'
@@ -109,7 +126,9 @@ def make_decode_step(cfg: ModelConfig):
     @torch.no_grad()
     def decode_step(params: M.LM, cache: dict, tokens: torch.Tensor):
         logits, cache = M.forward(cfg, params, tokens, cache=cache)
-        next_tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        # on a mesh, the vocab gathered onto each batch shard first
+        next_tok = torch.argmax(L.constrain_batch(logits[:, -1]), dim=-1,
+                                keepdim=True)
         return next_tok.to(torch.int32), logits, cache
 
     return decode_step

@@ -914,3 +914,44 @@ def test_checkpoint_save_and_restore_on_card(cuda, tmp_path):
                 assert t.dtype == torch.bfloat16
                 assert torch.equal(t.cpu(), state["opt"][key][name].cpu())
         assert int(back["opt"]["step"]) == 1
+
+
+def test_one_device_cuda_mesh_places_plain_tensors(cuda):
+    """`make_host_mesh(1, "cuda")` (a world-size-1 NCCL group unless one
+    exists): the sharding rules place a state's tensors as themselves,
+    plain and on the card; a CPU tensor moves to the card unchanged, and
+    the placed cache and batch equal their CPU originals."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as ts
+    mesh = make_host_mesh(1, cuda)
+    assert shd.axis_sizes(mesh) == {"data": 1, "model": 1}
+    assert dist.get_world_size() == 1
+    cfg = ARCHS["granite-moe-1b-a400m"].config.reduced()
+    state = ts.init_train_state(
+        cfg, O.AdamWConfig(), device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    before = dict(state["params"].named_parameters())
+    placed = shd.place(state, shd.named(
+        shd.tree_specs(state, mesh, "state", cfg=cfg), mesh))
+    for name, p in placed["params"].named_parameters():
+        assert p is before[name] and not isinstance(p, DTensor)
+    cache = M.init_cache(cfg, 2, 8, device="cpu")
+    for layer in cache["layers"]:
+        for t in layer.values():
+            t.normal_(generator=torch.Generator().manual_seed(1))
+    on_card = shd.place(cache, shd.named(shd.tree_specs(cache, mesh,
+                                                        "cache"), mesh))
+    for got, want in zip(on_card["layers"], cache["layers"]):
+        for k, t in got.items():
+            assert t.is_cuda and not isinstance(t, DTensor)
+            assert torch.equal(t.cpu(), want[k])
+    batch = {"tokens": torch.arange(32, dtype=torch.int32).reshape(2, 16)}
+    got = shd.place(batch, shd.named(shd.tree_specs(batch, mesh, "batch"),
+                                     mesh))
+    assert got["tokens"].is_cuda and torch.equal(got["tokens"].cpu(),
+                                                 batch["tokens"])

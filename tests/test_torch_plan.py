@@ -136,6 +136,11 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "ml_dtypes"))
              or m == "repro" or m.startswith("repro."))
 assert len(names) >= 20, names
+new = {"repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+       "repro_torch.distributed.compression",
+       "repro_torch.launch.costanalysis", "repro_torch.launch.dryrun",
+       "repro_torch.core._ga_legacy"}
+assert new <= set(names), sorted(new - set(names))
 assert not bad, bad
 print("ok", len(names))
 """

@@ -109,6 +109,32 @@ def test_serve_main_is_seeded(capsys):
     assert not torch.equal(a["logits"], c["logits"])
 
 
+def test_serve_main_mesh_path_equals_the_plain_steps(capsys):
+    """`serve.main` places parameters and cache on a one-device mesh
+    (--model-parallel 1, or 4 clamped to the one rank): its tokens and
+    last logits equal the plain prefill and decode steps from the same
+    seed, bit for bit."""
+    argv = ["--arch", "qwen3-0.6b", "--reduce", "--batch", "2",
+            "--prompt-len", "6", "--decode-steps", "3", "--device", "cpu"]
+    runs = [serve.main(argv + ["--model-parallel", mp]) for mp in "14"]
+    cfg = serve.REGISTRY["qwen3-0.6b"].config.reduced()
+    params = TM.LM(cfg, dtype=torch.float32, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    cache = TM.init_cache(cfg, 2, 9, dtype=torch.float32, device="cpu")
+    prompt = torch.randint(0, cfg.vocab, (2, 6),
+                           generator=torch.Generator().manual_seed(0))
+    logits, cache = tts.make_prefill_step(cfg)(params, cache, prompt)
+    tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True).to(torch.int32)
+    toks = [tok]
+    decode = tts.make_decode_step(cfg)
+    for _ in range(3):
+        tok, logits, cache = decode(params, cache, tok)
+        toks.append(tok)
+    for out in runs:
+        assert torch.equal(out["tokens"], torch.cat(toks, dim=1))
+        assert torch.equal(out["logits"], logits)
+
+
 def test_serve_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):

@@ -47,6 +47,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import model as TM
 from repro_torch.training import checkpoint as tckpt
 from repro_torch.training import optimizer as topt
+from repro_torch.training import train_step as tts
 from repro_torch.training.data import SyntheticLM as TData
 from test_torch_train_step import (JREG, batches, check_metrics,
                                    check_params, lr_sum, one_torch_thread,
@@ -468,6 +469,60 @@ def test_restore_casts_to_the_template_and_places_on_device(tmp_path):
     assert got["opt"]["m"]["embed"].dtype == torch.bfloat16
     for n, p in template["params"].state_dict().items():
         assert torch.equal(p, before[n]), n
+
+
+def test_restore_with_shardings_on_one_device(tmp_path):
+    """The elastic restore (tests/test_training.py::
+    test_checkpoint_elastic_restore_with_shardings) on a one-device mesh:
+    every leaf placed by its sharding comes back a plain tensor on the
+    mesh's device, equal to the saved one."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    _, tcfg, _, _, _, tstate = pair("qwen3-0.6b")
+    path = tckpt.save(str(tmp_path), 1, tstate)
+    mesh = make_host_mesh(1, "cpu")
+    sh = shd.named(shd.tree_specs(tstate, mesh, "state", cfg=tcfg), mesh)
+    got, step, _ = tckpt.restore(path, tstate, shardings=sh)
+    assert step == 1
+    want = dict(tstate["params"].named_parameters())
+    for n, p in got["params"].named_parameters():
+        assert not isinstance(p, DTensor) and p.device.type == "cpu"
+        assert torch.equal(p, want[n]), n
+    for k in ("m", "v"):
+        for n, t in got["opt"][k].items():
+            assert not isinstance(t, DTensor)
+            assert torch.equal(t, tstate["opt"][k][n]), (k, n)
+    assert torch.equal(got["opt"]["step"], tstate["opt"]["step"])
+
+
+def test_train_main_mesh_path_equals_the_plain_step(capsys):
+    """`launch.train.main` places its state on a one-device mesh
+    (--model-parallel 1, or 4 clamped to the one rank): its losses and
+    final parameters equal a plain loop of the same step from the same
+    seed, bit for bit."""
+    argv = ["--arch", "qwen3-0.6b", "--reduce", "--steps", "3",
+            "--batch", "2", "--seq", "8", "--log-every", "100",
+            "--device", "cpu"]
+    runs = [ttrain.main(argv + ["--model-parallel", mp]) for mp in "14"]
+    cfg = TREG["qwen3-0.6b"].config.reduced()
+    ocfg = topt.AdamWConfig(lr=1e-3, warmup_steps=5)
+    state = tts.init_train_state(cfg, ocfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(0),
+                                 dtype=torch.float32)
+    step = tts.make_train_step(cfg, ocfg, remat=False)
+    data = TData(vocab=cfg.vocab, seed=0)
+    losses = []
+    for i in range(3):
+        batch = {k: torch.from_numpy(v) for k, v in
+                 data.batch(i, 2, 8).items()}
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    want = dict(state["params"].named_parameters())
+    for out in runs:
+        assert out["losses"] == losses
+        for n, p in out["state"]["params"].named_parameters():
+            assert torch.equal(p, want[n]), n
 
 
 def test_latest_missing_leaf_and_shape_mismatch(tmp_path):
