@@ -160,7 +160,14 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               512 devices; (e) the legacy GA at gpt-7b on the card under
               a generation cap: fill_maxmin once per trip, its x scored
               on the card as on the numpy DES, the vectorized GA no
-              worse.
+              worse; (f) the sharded step on more than one rank:
+              train.main and serve.main with --model-parallel 2 on 4
+              gloo ranks of the host (a (2, 2) mesh, each rank joined to
+              the group before main, as under torchrun) at qwen3-0.6b's
+              reduced width, every rank's losses, parameters, tokens
+              and logits against the same entry points in a process of
+              their own (tests/test_torch_multirank.py's tolerances),
+              after the phase has destroyed its process group.
 
 The kernels phase also holds fill_maxmin's member axis against its plain
 version: a sweep of 1-3 members, and the two members of each [robust]
@@ -299,6 +306,14 @@ DIST_RING_RANKS, DIST_RING_SIZE = 4, 1000
 DIST_QUICK_ARCHS = ("qwen3-0.6b", "granite-moe-1b-a400m", "mamba2-130m")
 DIST_QUICK_SHAPES = ("train_4k", "decode_32k")
 DIST_GA_GENERATIONS = 6
+# (f): the sharded launchers' ranks and arguments, and the tolerances of
+# tests/test_torch_multirank.py
+DIST_MP_RANKS = 4
+DIST_MP_TRAIN = ("--reduce", "--steps", "2", "--batch", "4", "--seq", "8",
+                 "--log-every", "100", "--device", "cpu")
+DIST_MP_SERVE = ("--reduce", "--batch", "4", "--prompt-len", "8",
+                 "--decode-steps", "2", "--device", "cpu")
+DIST_MP_REL, DIST_MP_LOSS_ABS, DIST_MP_PARAM_ABS = 1e-5, 1e-6, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -2932,6 +2947,107 @@ if __name__ == "__main__":
 """
 
 
+_SHARDED = """
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.tensor import DTensor
+
+
+def whole(t):
+    t = t.full_tensor() if isinstance(t, DTensor) else t
+    return t.detach().numpy()
+
+
+def rank_main(rank, n, out, store, train_args, serve_args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=n)
+    from repro_torch.launch import serve, train
+    r = train.main(json.loads(train_args))
+    s = serve.main(json.loads(serve_args))
+    arrays = {f"param/{k}": whole(p)
+              for k, p in r["state"]["params"].named_parameters()}
+    np.savez(f"{out}.{rank}.npz", losses=np.asarray(r["losses"]),
+             tokens=s["tokens"].numpy(), logits=whole(s["logits"]),
+             **arrays)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    n = int(sys.argv[1])
+    mp.spawn(rank_main, args=(n, *sys.argv[2:6]), nprocs=n)
+"""
+
+
+def _dist_sharded() -> None:
+    """(f): train.main and serve.main with --model-parallel 2 on
+    DIST_MP_RANKS gloo ranks of the host against the same entry points
+    run alone (the plain path), each rank's results gathered.  Runs with
+    no process group in this process."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve, train
+    mp_args = ["--arch", TRAIN_ARCH, "--model-parallel", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "sharded.py").write_text(_SHARDED)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, str(tmp / "sharded.py"), str(DIST_MP_RANKS),
+             str(tmp / "out"), str(tmp / "store"),
+             json.dumps([*mp_args, *DIST_MP_TRAIN]),
+             json.dumps([*mp_args, *DIST_MP_SERVE])],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"[dist] the sharded launchers failed: "
+                 f"{run.stderr[-3000:]}")
+        ranks = [dict(np.load(tmp / f"out.{r}.npz"))
+                 for r in range(DIST_MP_RANKS)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            plain = train.main(["--arch", TRAIN_ARCH, *DIST_MP_TRAIN])
+            served = serve.main(["--arch", TRAIN_ARCH, *DIST_MP_SERVE])
+    finally:
+        torch.set_num_threads(threads)
+    params = {k: p.detach().numpy()
+              for k, p in plain["state"]["params"].named_parameters()}
+    loss_err = max(float(np.abs(r["losses"] - plain["losses"]).max())
+                   for r in ranks)
+    param_err = max(float(np.abs(r[f"param/{k}"] - p).max())
+                    for r in ranks for k, p in params.items())
+    same_tok = all(np.array_equal(r["tokens"], served["tokens"].numpy())
+                   for r in ranks)
+    logit_err = max(float(np.abs(r["logits"] - served["logits"].numpy())
+                          .max()) for r in ranks)
+    ok = same_tok and all(
+        np.allclose(r["losses"], plain["losses"], rtol=DIST_MP_REL,
+                    atol=DIST_MP_LOSS_ABS)
+        and np.allclose(r["logits"], served["logits"].numpy(),
+                        rtol=DIST_MP_REL, atol=DIST_MP_REL)
+        and all(np.allclose(r[f"param/{k}"], p, rtol=DIST_MP_REL,
+                            atol=DIST_MP_PARAM_ABS)
+                for k, p in params.items()) for r in ranks)
+    log(f"[dist] train.main and serve.main {TRAIN_ARCH} reduced, "
+        f"--model-parallel 2 on {DIST_MP_RANKS} gloo ranks (torch "
+        f"{torch.__version__}): losses {ranks[0]['losses'].tolist()} vs "
+        f"alone {plain['losses']} (max error {loss_err:.3e}), parameters "
+        f"max error {param_err:.3e}, tokens "
+        f"{'equal' if same_tok else 'DIFFERENT'}, logits max error "
+        f"{logit_err:.3e}; {wall:.1f} s")
+    if not ok:
+        fail("[dist] the sharded launchers differ from the plain path")
+
+
 def _dist_serve_train(mesh, serve_first, train_first: float) -> None:
     """(a): serve.main and train.main at full width through the 1 x 1
     mesh against [serve]'s and [train]'s results and a plain step loop."""
@@ -3059,7 +3175,8 @@ def _dist_predict(mesh) -> None:
         fail(f"[dist] run_cell: {cell.get('error')}")
     mem = cell["memory"]
     log(f"[dist] run_cell {TRAIN_ARCH} train batch {TRAIN_BATCH} x seq "
-        f"{TRAIN_SEQ} float32 on the 1 x 1 mesh ({time.perf_counter() - t0:.1f}"
+        f"{TRAIN_SEQ} float32 on the 1 x 1 mesh "
+        f"({time.perf_counter() - t0:.1f}"
         f" s on meta): accum_steps {cell['accum_steps']}, arguments "
         f"{mem['argument_bytes']} B, outputs {mem['output_bytes']} B, "
         f"temporaries {mem['temp_bytes']} B, {cell['flops_per_device']:.0f} "
@@ -3203,6 +3320,8 @@ def phase_dist(serve_first, train_first: float) -> int:
     _dist_predict(mesh)
     _dist_dryrun()
     launches = _dist_legacy_ga()
+    dist.destroy_process_group()
+    _dist_sharded()
     log(f"[dist] phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 

@@ -67,11 +67,6 @@ class MILPOptions:
     k_slack: int = 0                # extra intervals appended after K
     time_limit: float = 600.0
     mip_rel_gap: float = 1e-4
-    # branch-and-bound nodes per solve (None: no limit): a budget the
-    # solver counts deterministically, where time_limit depends on the
-    # machine's speed and load; reaching it ends a solve as time_limit
-    # does (with its incumbent, if any)
-    node_limit: int | None = None
     hot_start: bool = True
     upper_bound: float | None = None   # externally supplied incumbent C
     seed_x: np.ndarray | None = None   # incumbent topology (e.g. delta-fast)
@@ -150,8 +145,7 @@ class _Model:
         self.nrow += 1
 
     def solve(self, time_limit: float, mip_rel_gap: float, verbose: bool,
-              phase: str = "main", node_limit: int | None = None
-              ) -> tuple[str, np.ndarray | None, dict]:
+              phase: str = "main") -> tuple[str, np.ndarray | None, dict]:
         with span("milp.solve", phase=phase, nvars=self.nvar,
                   nrows=self.nrow) as sp_:
             c = np.zeros(self.nvar)
@@ -167,17 +161,10 @@ class _Model:
                 bounds=Bounds(np.asarray(self.lb), np.asarray(self.ub)),
                 integrality=np.asarray(self.integrality),
                 options={"time_limit": time_limit,
-                         "mip_rel_gap": mip_rel_gap, "disp": verbose,
-                         **({} if node_limit is None
-                            else {"node_limit": node_limit})},
+                         "mip_rel_gap": mip_rel_gap, "disp": verbose},
             )
             status = {0: "optimal", 1: "iteration_limit", 2: "infeasible",
                       3: "unbounded", 4: "error"}.get(res.status, "error")
-            if status == "error" and node_limit is not None and \
-                    "limit reached" in str(res.message):
-                # scipy reports HiGHS's node limit as an unrecognised
-                # status: the budget expired
-                status = "iteration_limit"
             if status == "iteration_limit":
                 # the budget expired; with no incumbent (res.x is None) the
                 # caller's z-None path returns makespan=inf, which the
@@ -509,8 +496,7 @@ def solve_delta_milp(dag: CommDAG, opts: MILPOptions | None = None
         md_hot = _apply_hot_start(md, lay, dag, baseline, t_up)
         md_hot.obj = {lay.C: 1.0}
         st_h, z_h, _ = md_hot.solve(min(opts.time_limit / 4, 60.0),
-                                    1e-3, False, phase="hot_start",
-                                    node_limit=opts.node_limit)
+                                    1e-3, False, phase="hot_start")
         if st_h in ("optimal", "time_limit") and z_h is not None:
             cand = float(z_h[lay.C]) * (1 + 1e-6) + 1e-9
             incumbent = min(incumbent, cand) if incumbent else cand
@@ -520,7 +506,7 @@ def solve_delta_milp(dag: CommDAG, opts: MILPOptions | None = None
 
     ts = time.time()
     status, z, info = md.solve(opts.time_limit, opts.mip_rel_gap,
-                               opts.verbose, node_limit=opts.node_limit)
+                               opts.verbose)
     solve_time = time.time() - ts
     if z is None:
         P = dag.cluster.num_pods
@@ -541,8 +527,7 @@ def solve_delta_milp(dag: CommDAG, opts: MILPOptions | None = None
         md.ub[lay.C] = result.makespan * (1 + 1e-6) + 1e-9
         md.obj = {int(lay.x[e]): 1.0 for e in range(len(lay.edges))}
         st2, z2, info2 = md.solve(opts.time_limit, opts.mip_rel_gap,
-                                  opts.verbose, phase="port_min",
-                                  node_limit=opts.node_limit)
+                                  opts.verbose, phase="port_min")
         if st2 in ("optimal", "time_limit") and z2 is not None:
             r2 = _extract(dag, md, lay, z2, st2, time.time() - tp,
                           {**result.stats, "phase2": info2})

@@ -59,7 +59,6 @@ _COLLECTIVE_NS = ("_c10d_functional", "c10d", "_dtensor")
 _MATMULS = {"mm": 0, "bmm": 0, "addmm": 1, "baddbmm": 1}
 _NO_DATA = {"_wrap_tensor_autograd", "wait_tensor", "detach", "alias",
             "lift_fresh"}
-_VIEWS = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
 
 
 @dataclass
@@ -133,8 +132,6 @@ class CostMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
-            if func in _VIEWS:
-                return self._view(func, args, kwargs)
             return NotImplemented
         ins = _tensors((args, kwargs))
         if self._nested or any(_is_fake(t) for t in ins):
@@ -168,37 +165,6 @@ class CostMode(TorchDispatchMode):
         if not func.is_view:
             self._track(outs)
         return out
-
-
-    def _view(self, func, args, kwargs):
-        """A view of a DTensor.  Where DTensor refuses to flatten a
-        sharded dim that is not the first of the dims a view flattens
-        (its view rule in some torch versions: a product's own reshape
-        meets it, in the forward and the backward; later versions shard
-        the flattened dim), the input keeps only its dim-0 shards, its
-        other dims gathered (counted like any collective), and the view
-        runs on that.  No op has run before the refusal: it comes from
-        sharding propagation."""
-        from torch.distributed.tensor import Replicate, Shard
-        from torch.distributed.tensor._dtensor_spec import DTensorSpec
-        from torch.distributed.tensor._redistribute import \
-            redistribute_local_tensor
-        try:
-            return func(*args, **kwargs)
-        except RuntimeError as exc:
-            if "flatten" not in str(exc):
-                raise
-        x = args[0]
-        spec = x._spec
-        want = DTensorSpec(spec.mesh, tuple(
-            Replicate() if isinstance(p, Shard) and p.dim >= 1 else p
-            for p in spec.placements), tensor_meta=spec.tensor_meta)
-        # below autograd here: the local redistribution, its collectives
-        # dispatched through this mode again
-        with self:
-            local = redistribute_local_tensor(x._local_tensor, spec, want)
-        return func(DTensor(local, want, requires_grad=False), *args[1:],
-                    **kwargs)
 
 
 def local_bytes(tree) -> int:

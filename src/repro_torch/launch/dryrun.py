@@ -294,14 +294,12 @@ def run_cell(arch_name: str, arch: ArchSpec, shape: ShapeSpec,
     seq_shard, seq_parallel = hint_flags(cfg, shape, mesh)
     cell["seq_shard_attention"] = seq_shard
     cell["seq_parallel"] = seq_parallel
-    from torch.distributed.tensor.experimental import implicit_replication
     arg_bytes = costanalysis.local_bytes(args) + extra_args
     mode = costanalysis.CostMode()
     mode.track_args(args)
     try:
         with sharding_hints(mesh, shd.data_axes(mesh), seq_shard=seq_shard,
-                            seq_parallel=seq_parallel), \
-                implicit_replication(), mode:
+                            seq_parallel=seq_parallel), mode:
             out = run()
     except Exception as exc:   # noqa: BLE001 - a cell records its failure
         cell.update(status="error", error=f"{type(exc).__name__}: {exc}",

@@ -108,6 +108,17 @@ def make_host_mesh(model_parallel: int = 1,
                             mesh_dim_names=("data", "model"))
 
 
+def launch_mesh(model_parallel: int = 1,
+                device: torch.device | str = "cuda") -> DeviceMesh | None:
+    """The mesh a launcher places its state on: `make_host_mesh`'s where
+    a process group exists or `torchrun`'s environment is set; None in a
+    process of its own, which runs the plain path (on one device every
+    placement is the identity) and creates no process group."""
+    if dist.is_initialized() or all(k in os.environ for k in _TORCHRUN_ENV):
+        return make_host_mesh(model_parallel, device)
+    return None
+
+
 def _fake_group() -> None:
     """The dry run's fake process group of PRODUCTION_WORLD ranks (this
     process is rank 0).  An existing group of another kind, or a smaller

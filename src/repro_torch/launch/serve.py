@@ -6,11 +6,12 @@
 Parameters and cache are float32, drawn on `--device` (default cuda;
 without a CUDA device, pass --device cpu) from a generator seeded with
 `--seed`; the prompt (and the modality input of a vlm / encdec model)
-comes from a CPU generator with the same seed.  Parameters and cache are
-placed on a ("data", "model") mesh of the process group's ranks
-(`launch.mesh.make_host_mesh(--model-parallel)`) by the sharding rules,
-as the reference places them; on one device every placement is the
-identity.
+comes from a CPU generator with the same seed.  Parameters, cache and
+inputs are placed on a ("data", "model") mesh of the process group's
+ranks (`launch.mesh.make_host_mesh(--model-parallel)`, when `torchrun`
+started the process or a process group exists) by the sharding rules,
+as the reference places them; in a process of its own they stay plain,
+which on one device is what every placement would give.
 """
 from __future__ import annotations
 
@@ -18,10 +19,11 @@ import argparse
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import REGISTRY
 from repro_torch.distributed import sharding as shd
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import launch_mesh
 from repro_torch.models import model as M
 from repro_torch.training import train_step as ts
 
@@ -52,18 +54,20 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = REGISTRY[args.arch].config
     if args.reduce:
         cfg = cfg.reduced()
-    mesh = make_host_mesh(args.model_parallel, device)
-    params = M.LM(cfg, dtype=torch.float32, device=device,
-                  generator=torch.Generator(device=device)
-                  .manual_seed(args.seed))
-    params = shd.place(params, shd.named(
-        shd.tree_specs(params, mesh, "params", cfg=cfg), mesh))
+    mesh = launch_mesh(args.model_parallel, device)
+
+    def place(tree, kind, **kw):
+        return tree if mesh is None else shd.place(tree, shd.named(
+            shd.tree_specs(tree, mesh, kind, **kw), mesh))
+
+    params = place(M.LM(cfg, dtype=torch.float32, device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(args.seed)), "params", cfg=cfg)
     max_len = args.prompt_len + args.decode_steps
     xl = cfg.enc_tokens if cfg.encoder_layers else cfg.num_image_tokens
     cache = M.init_cache(cfg, args.batch, max_len, dtype=torch.float32,
                          enc_len=xl, device=device)
-    cache = shd.place(cache, shd.named(shd.tree_specs(cache, mesh, "cache"),
-                                       mesh))
+    cache = place(cache, "cache")
 
     has_xkv = bool(xl)
     prefill = ts.make_prefill_step(cfg, has_xkv=has_xkv)
@@ -74,6 +78,7 @@ def main(argv: list[str] | None = None) -> dict:
                            generator=host).to(device)
     xkv = (torch.randn((args.batch, xl, cfg.d_model), generator=host)
            .to(device) if has_xkv else None)
+    prompt, xkv = place([prompt, xkv], "batch")
     sync()
     t0 = time.perf_counter()
     logits, cache = prefill(params, cache, prompt, xkv)
@@ -93,7 +98,8 @@ def main(argv: list[str] | None = None) -> dict:
           f"{t_prefill*1e3:.0f}ms; decoded {total_tok} tokens in "
           f"{t_decode*1e3:.0f}ms "
           f"({total_tok/max(t_decode,1e-9):.1f} tok/s)")
-    seq = torch.cat(out, dim=1).cpu()
+    seq = _whole(torch.cat(out, dim=1)).cpu()
+    logits = _whole(logits)
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError(f"{cfg.name}: non-finite logits")
     print("[serve] sample token ids:", seq[0, :16].tolist())
@@ -102,6 +108,11 @@ def main(argv: list[str] | None = None) -> dict:
             "logits": logits,
             "param_bytes": sum(p.numel() * p.element_size()
                                for p in params.parameters())}
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """`t`'s full value on every rank (a DTensor's, gathered)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 if __name__ == "__main__":

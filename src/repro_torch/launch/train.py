@@ -18,8 +18,10 @@ without a CUDA device, pass --device cpu), drawn from a generator seeded
 with `--seed`; batches are made on the host with numpy.  The state is
 placed on a ("data", "model") mesh of the process group's ranks
 (`launch.mesh.make_host_mesh(--model-parallel)`, a world of one rank
-unless `torchrun` started the process) by the sharding rules, as the
-reference places it; on one device every placement is the identity.
+when `torchrun` started the process or a process group exists) by the
+sharding rules, as the reference places it, and so is each batch; in a
+process of its own the step runs plain, which on one device is what
+every placement would give.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.fault_tolerance import (FailureInjector,
                                                      StepWatchdog,
                                                      run_resilient)
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import launch_mesh
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import optimizer as opt
 from repro_torch.training import train_step as ts
@@ -110,17 +112,18 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = REGISTRY[args.arch].config
     if args.reduce:
         cfg = cfg.reduced()
-    mesh = make_host_mesh(args.model_parallel, device)
+    mesh = launch_mesh(args.model_parallel, device)
     ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5))
     state = ts.init_train_state(
         cfg, ocfg, device=device,
         generator=torch.Generator(device=device).manual_seed(args.seed),
         dtype=torch.float32)
-    state = shd.place(state, shd.named(
-        shd.tree_specs(state, mesh, "state", cfg=cfg), mesh))
-    step_fn = ts.make_train_step(cfg, ocfg, accum_steps=args.accum,
-                                 remat=False, mesh=mesh,
-                                 data_axes=shd.data_axes(mesh))
+    if mesh is not None:
+        state = shd.place(state, shd.named(
+            shd.tree_specs(state, mesh, "state", cfg=cfg), mesh))
+    step_fn = ts.make_train_step(
+        cfg, ocfg, accum_steps=args.accum, remat=False, mesh=mesh,
+        data_axes=shd.data_axes(mesh) if mesh is not None else ())
     data = SyntheticLM(vocab=cfg.vocab, seed=args.seed)
 
     start_step = 0
@@ -140,6 +143,9 @@ def main(argv: list[str] | None = None) -> dict:
         injector.maybe_fail(step)
         batch = data.batch(step, args.batch, args.seq)
         batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        if mesh is not None:
+            batch = shd.place(batch, shd.named(
+                shd.tree_specs(batch, mesh, "batch"), mesh))
         box["state"], metrics = step_fn(box["state"], batch)
         loss = float(metrics["loss"])
         box["losses"].append(loss)

@@ -19,10 +19,19 @@ boundaries over the model axis); `_seq_shard` sequence-shards q/k/v
 inside attention (Ulysses-style, for head counts that do not divide the
 model axis: qwen2.5's 40 heads, whisper's 20 on a 16-way axis).  Each is
 a `DTensor.redistribute` to the reference's spec; with no hints
-installed, or on a plain tensor, it returns its input unchanged.  The
-MoE's per-sequence sort and scatter run on each device's batch shard
-(`_batch_local`, under `local_map`), where the reference's `vmap` keeps
-them local to the batch shard.
+installed, or on a plain tensor, it returns its input unchanged.
+
+On DTensors (a run on a mesh, hints or not) every op meets only
+DTensors: tensors made on the spot (positions, masks) are replicated on
+the mesh (`like`); every product is `einsum`/`matmul`, which settles each
+mesh dim on the einsum's letters and multiplies the local shards; the
+streaming attention loop runs on each device's (batch, heads) shard
+(`_flash_on_shards`); and the embedding lookup, the MoE's per-sequence
+sort and scatter and the SSM scan run on each device's batch shard
+(`_batch_local`), where the reference's `vmap` keeps
+them local to the batch shard.  Every redistribution of an operand is
+explicit; DTensor's own rules are left only the elementwise ops and
+reductions between the products.
 """
 from __future__ import annotations
 
@@ -129,39 +138,171 @@ def _seq_shard(x: torch.Tensor) -> torch.Tensor:
              None), hints)
 
 
-def _batch_local(fn, n_out: int, batch_args: tuple,
-                 param_args: tuple = ()):
+def like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`t`, a tensor made on the spot (positions, a mask, an accumulator's
+    zeros), replicated on `x`'s mesh when `x` is a DTensor, so that the two
+    can meet in one op; `t` itself otherwise.  Every rank makes the same
+    `t`, so no collective checks it."""
+    if not isinstance(x, DTensor) or isinstance(t, DTensor):
+        return t
+    dm = x.device_mesh
+    return DTensor.from_local(t, dm, (Replicate(),) * dm.ndim,
+                              run_check=False)
+
+
+def _contiguous(shape) -> tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+class _DenseGrad(torch.autograd.Function):
+    """Identity whose gradient gets the row-major strides of its shape.
+    A local product's gradient can carry any stride on a dim of size 1
+    (one sequence per device), which DTensor scales into a global stride
+    that is not row-major; the ops that consume it then copy it, and a
+    `meta` run's sharding propagation builds that copy on the mesh's
+    device type, which a CPU build lacks."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.stride() != _contiguous(g.shape):
+            g = g.clone(memory_format=torch.contiguous_format)
+        return g
+
+
+def _on_shards(fn, args: tuple, in_pl: tuple, out_pl: tuple,
+               out_shape=None):
+    """fn(*local shards) -> its output(s) as DTensors of placements
+    `out_pl` (a tuple of outputs alike) and global shape `out_shape` (by
+    default the local one scaled by the shards).  Each DTensor in `args`
+    is first redistributed to its placements in `in_pl` (explicitly: the
+    collectives this costs are the region's).  The gradient of an input
+    replicated on a mesh dim where the outputs are not is a partial sum
+    there."""
+    dm = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    out_pl = tuple(out_pl)
+    local = []
+    for a, pl in zip(args, in_pl):
+        if not isinstance(a, DTensor):
+            local.append(a)
+            continue
+        pl = tuple(pl)
+        if tuple(a.placements) != pl:
+            a = a.redistribute(dm, pl)
+        grad = tuple(Partial() if isinstance(p, Replicate)
+                     and not isinstance(o, Replicate) else p
+                     for p, o in zip(pl, out_pl))
+        local.append(_DenseGrad.apply(a.to_local(grad_placements=grad)))
+    out = fn(*local)
+
+    def wrap(t):
+        shape = list(t.shape) if out_shape is None else list(out_shape)
+        if out_shape is None:
+            for p, n in zip(out_pl, dm.shape):
+                if isinstance(p, Shard):
+                    shape[p.dim] *= n
+        # the global stride given is row-major: so is the local shard
+        return DTensor.from_local(t.contiguous(), dm, out_pl,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous(shape))
+
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def _settled(t: DTensor) -> list:
+    """`t`'s placements with a pending sum (Partial) or a strided shard
+    taken to Replicate: what a product on local shards can read."""
+    return [p if type(p) is Shard or isinstance(p, Replicate)
+            else Replicate() for p in t.placements]
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum(eq, a, b)` (two operands, no ellipsis); on DTensors,
+    computed on each device's shards.
+
+    DTensor's own einsum folds each operand's batch and contracted dims
+    into one, and torch 2.11 refuses a fold whose sharded dim is not the
+    first it folds (attention's (batch, heads), a sequence-sharded
+    (batch, seq), a head_dim-sharded (heads, head_dim)).  Here each mesh
+    dim is settled on the letters: a letter sharded in one operand is
+    sharded alike in the other where it occurs (a local slice, no
+    collective); two operands sharded on different letters gather the
+    smaller one on that mesh dim (the second of two equal ones: the keys
+    of a sequence-sharded attention, not its queries); the output is
+    sharded on the letter, or holds partial sums where the letter is
+    contracted."""
+    if not isinstance(a, DTensor) and not isinstance(b, DTensor):
+        return torch.einsum(eq, a, b)
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)):
+        raise TypeError("einsum of a DTensor and a plain tensor; place "
+                        "both on the mesh")
+    ins, out = eq.replace(" ", "").split("->")
+    la, lb = ins.split(",")
+    pa, pb = _settled(a), _settled(b)
+    po = []
+    for i in range(a.device_mesh.ndim):
+        ca = la[pa[i].dim] if isinstance(pa[i], Shard) else None
+        cb = lb[pb[i].dim] if isinstance(pb[i], Shard) else None
+        if ca and cb and ca != cb:
+            if a.numel() < b.numel():
+                pa[i], ca = Replicate(), None
+            else:
+                pb[i], cb = Replicate(), None
+        c = ca or cb
+        if c is None:
+            po.append(Replicate())
+            continue
+        if c in la:
+            pa[i] = Shard(la.index(c))
+        if c in lb:
+            pb[i] = Shard(lb.index(c))
+        po.append(Shard(out.index(c)) if c in out else Partial())
+    size = {**dict(zip(lb, b.shape)), **dict(zip(la, a.shape))}
+    return _on_shards(functools.partial(torch.einsum, eq), (a, b),
+                      (pa, pb), po, tuple(size[c] for c in out))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`x @ w` for a (..., k) activation and a (k, n) weight; on
+    DTensors, `einsum` on each device's shards."""
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return x @ w
+    lead = "abcdefgh"[:x.ndim - 1]
+    return einsum(f"{lead}k,kn->{lead}n", x, w)
+
+
+def _batch_local(fn, batch_args: tuple, param_args: tuple = ()):
     """fn(*batch_args, *param_args), computed per batch shard: directly on
-    plain tensors; on DTensors (a run on a mesh) under `local_map`, the
-    (B, ...) `batch_args` batch-sharded over the data axes where B
-    divides (else replicated), the parameters replicated, and the `n_out`
-    outputs batch-sharded alike.  This is where the reference's `vmap`
-    over sequences keeps a sort or scatter local to the batch shard, for
-    which DTensor has no sharding rule."""
+    plain tensors; on DTensors (a run on a mesh) on each device's shards
+    (`_on_shards`), the (B, ...) `batch_args` batch-sharded over the data
+    axes where B divides (else replicated), the parameters replicated,
+    and every output batch-sharded alike.  This is where the reference's
+    `vmap` over sequences keeps a sort or scatter local to the batch
+    shard, for which DTensor has no sharding rule."""
     args = (*batch_args, *param_args)
     if not any(isinstance(a, DTensor) for a in args):
         return fn(*args)
-    from torch.distributed.tensor.experimental import local_map
+    if not all(isinstance(a, DTensor) for a in args):
+        # a plain tensor is whole on every rank: run per shard beside
+        # DTensors, each rank would take it for its own shard
+        raise TypeError("a batch-local region got DTensors and plain "
+                        "tensors together; place every input on the mesh")
     hints = _HINTS.get()
-    mesh = hints["mesh"] if hints is not None else \
-        next(a for a in args if isinstance(a, DTensor)).device_mesh
+    mesh = hints["mesh"] if hints is not None else args[0].device_mesh
     data = data_axes(mesh)
     b = batch_args[0].shape[0]
-    spec = P(data if b % math.prod(axis_sizes(mesh)[a] for a in data) == 0
-             else None)
-    batch = placements(spec, mesh)
+    batch = placements(P(data if b % math.prod(
+        axis_sizes(mesh)[a] for a in data) == 0 else None), mesh)
     rep = placements(P(), mesh)
-    # a replicated parameter's gradient: partial sums over the batch shards
-    grad = tuple(Partial() if isinstance(b, Shard) else Replicate()
-                 for b in batch)
-    f = local_map(fn, out_placements=(batch,) * n_out,
-                  device_mesh=device_mesh(mesh),
-                  in_placements=(*(batch,) * len(batch_args),
-                                 *(rep,) * len(param_args)),
-                  in_grad_placements=(*(batch,) * len(batch_args),
-                                      *(grad,) * len(param_args)),
-                  redistribute_inputs=True)
-    return f(*args)
+    return _on_shards(fn, args, (*(batch,) * len(batch_args),
+                                 *(rep,) * len(param_args)), batch)
 
 
 def _lookup(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -172,7 +313,7 @@ def embed_lookup(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """The (B, S, d) rows of `embed` for `tokens`: an index on plain
     tensors; on a mesh, each batch shard indexes the whole table (DTensor
     shards no lookup into a sharded table both ways)."""
-    return _batch_local(_lookup, 1, (tokens,), (embed,))
+    return _batch_local(_lookup, (tokens,), (embed,))
 
 
 def _normal(shape, std: float, dtype, device, generator) -> nn.Parameter:
@@ -203,8 +344,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device) / half)
     ang = positions.float()[..., None] * freqs               # (..., S, half)
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
+    cos = like(torch.cos(ang)[..., None, :], x)
+    sin = like(torch.sin(ang)[..., None, :], x)
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -230,13 +371,13 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ke = _seq_shard(_expand_kv(k, h))
     ve = _seq_shard(_expand_kv(v, h))
     scale = 1.0 / math.sqrt(hd)
-    s = torch.einsum("bqhd,bshd->bhqs", q.float(), ke.float()) * scale
+    s = einsum("bqhd,bshd->bhqs", q.float(), ke.float()) * scale
     if causal:
         q_pos = q_offset + torch.arange(sq, device=q.device)
         mask = torch.arange(sk, device=q.device)[None, :] <= q_pos[:, None]
-        s = s.masked_fill(~mask, NEG)
+        s = s.masked_fill(like(~mask, s), NEG)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhqs,bshd->bqhd", p, ve)
+    return einsum("bhqs,bshd->bqhd", p, ve)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -245,14 +386,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Streaming-softmax attention with GQA over `kv_block`-key blocks:
     float32 running max, sum and accumulator; the last block padded and
     its padding masked (`kv_pos < Sk`), as the causal mask is from
-    `q_offset`.  q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd)."""
+    `q_offset`.  q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd).
+
+    On DTensors the streaming loop runs on each device's shards
+    (`_flash_on_shards`)."""
+    q = _seq_shard(q)
+    q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+    core = functools.partial(_flash, causal=causal, kv_block=kv_block)
+    if isinstance(q, DTensor):
+        return _flash_on_shards(core, q, k, v, q_pos)
+    return core(q, k, v, q_pos)
+
+
+def _flash_on_shards(core, q, k, v, q_pos):
+    """`core` on each device's (batch, heads) shard: the batch on the
+    data axes where it divides; on the model axis the heads where they
+    divide, else q's sequence (q_pos alike, K/V whole), else nothing.
+    K/V are expanded to the query heads first, so that a device's query
+    heads find their K/V heads in its shard."""
+    b, sq, h, hd = q.shape
+    hints = _HINTS.get()
+    mesh = hints["mesh"] if hints is not None else q.device_mesh
+    data = data_axes(mesh)
+    sizes = axis_sizes(mesh)
+    dsize = math.prod(sizes[a] for a in data)
+    bd = (data if len(data) > 1 else data[0]) \
+        if data and b % dsize == 0 else None
+    msize = sizes.get("model", 1)
+    heads = msize > 1 and h % msize == 0
+    seq = msize > 1 and not heads and sq % msize == 0
+    qs = P(bd, "model" if seq else None, "model" if heads else None, None)
+    ks = P(bd, None, "model" if heads else None, None)
+    ke, ve = _expand_kv(k, h), _expand_kv(v, h)
+    pl = functools.partial(placements, mesh=mesh)
+    return _on_shards(core, (q, ke, ve, like(q_pos, q)),
+                      (pl(qs), pl(ks), pl(ks),
+                       pl(P("model" if seq else None))),
+                      pl(qs), q.shape)
+
+
+def _flash(q, k, v, q_pos, *, causal: bool, kv_block: int):
     b, sq, h, hd = q.shape
     sk = k.shape[1]
-    q = _seq_shard(q)
     scale = 1.0 / math.sqrt(hd)
     qf = q.float() * scale
     nblk = -(-sk // kv_block)
-    q_pos = q_offset + torch.arange(sq, device=q.device)
     m = torch.full((b, h, sq), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
@@ -294,11 +472,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ve = _expand_kv(v, h)
     scale = 1.0 / math.sqrt(hd)
     qf = q[:, 0].float() * scale                              # (B, H, hd)
-    s = torch.einsum("bhd,bshd->bhs", qf, ke.float())
+    s = einsum("bhd,bshd->bhs", qf, ke.float())
     mask = torch.arange(k.shape[1], device=q.device)[None, :] < kv_len
-    s = s.masked_fill(~mask[:, None, :], NEG)
+    s = s.masked_fill(like(~mask[:, None, :], s), NEG)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhs,bshd->bhd", p, ve.float())
+    out = einsum("bhs,bshd->bhd", p, ve.float())
     return out[:, None].to(q.dtype)
 
 
@@ -345,9 +523,9 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     starts empty).
     """
     src = kv_source if kv_source is not None else x
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", src, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", src, p.wv)
+    q = einsum("bsd,dhk->bshk", x, p.wq)
+    k = einsum("bsd,dhk->bshk", src, p.wk)
+    v = einsum("bsd,dhk->bshk", src, p.wv)
     if p.bq is not None:
         q = q + p.bq
         k = k + p.bk
@@ -378,7 +556,7 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         out = dense_attention(q, k, v, causal=causal and kv_source is None)
     else:
         out = flash_attention(q, k, v, causal=causal and kv_source is None)
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo)
+    y = einsum("bshk,hkd->bsd", out, p.wo)
     return y, new_cache
 
 
@@ -400,8 +578,8 @@ class SwiGLU(nn.Module):
 
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p.wg) * (x @ p.wi)
-    return h @ p.wo
+    h = F.silu(matmul(x, p.wg)) * matmul(x, p.wi)
+    return matmul(h, p.wo)
 
 
 class MoE(nn.Module):
@@ -435,12 +613,12 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     e, k = cfg.moe_experts, cfg.moe_top_k
     c = int(max(1, math.ceil(s * k / e * cfg.moe_capacity)))
     xe, buf_slot, tok, keep, g = _batch_local(
-        functools.partial(_moe_dispatch, e=e, k=k, c=c), 5, (x,),
+        functools.partial(_moe_dispatch, e=e, k=k, c=c), (x,),
         (p.router,))
-    h = F.silu(torch.einsum("becd,edf->becf", xe, p.wg)) * \
-        torch.einsum("becd,edf->becf", xe, p.wi)
-    ye = torch.einsum("becf,efd->becd", h, p.wo).reshape(b, e * c, d)
-    out = _batch_local(functools.partial(_moe_combine, s=s), 1,
+    h = F.silu(einsum("becd,edf->becf", xe, p.wg)) * \
+        einsum("becd,edf->becf", xe, p.wi)
+    ye = einsum("becf,efd->becd", h, p.wo).reshape(b, e * c, d)
+    out = _batch_local(functools.partial(_moe_combine, s=s),
                        (ye, buf_slot, tok, keep, g))
     return constrain_batch(out)
 
@@ -522,7 +700,7 @@ def _mamba_split(p: Mamba2, cfg: ModelConfig, x: torch.Tensor):
     d_in = cfg.ssm_expand * cfg.d_model
     n = cfg.ssm_state
     nh = d_in // cfg.ssm_head_dim
-    zxbcdt = x @ p.in_proj
+    zxbcdt = matmul(x, p.in_proj)
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * n, nh], dim=-1)
     return z, xbc, dt, d_in, n, nh
 
@@ -570,14 +748,14 @@ def mamba_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
         ct = cm[:, 0].float()
         upd = (dtb[..., None] * xh[:, 0])[..., None] * bt[:, None, None, :]
         ssm_state = cache["ssm"] * da[..., None, None] + upd  # (B,nh,hd,n)
-        y = torch.einsum("bhpn,bn->bhp", ssm_state, ct)[:, None]
+        y = einsum("bhpn,bn->bhp", ssm_state, ct)[:, None]
     else:
         xbc_conv, conv_state = _causal_conv(xbc, p.conv_w, p.conv_b)
         xs, bm, cm = torch.split(xbc_conv, [d_in, n, n], dim=-1)
         # per sequence, so on a mesh each batch shard scans its own (the
         # scan's cumulative sums have no sharding rule both ways)
         y, ssm_state = _batch_local(
-            functools.partial(_ssd_batch, chunk=chunk), 2,
+            functools.partial(_ssd_batch, chunk=chunk),
             (xs.reshape(b, s, nh, hd).float(), dt, bm.float(), cm.float()),
             (a,))
     new_cache = None
@@ -587,7 +765,7 @@ def mamba_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
         new_cache = cache
     yf = y.reshape(b, s, d_in).to(x.dtype)
     out = rmsnorm(yf * F.silu(z), p.norm_w, cfg.norm_eps)
-    return out @ p.out_proj, new_cache
+    return matmul(out, p.out_proj), new_cache
 
 
 def _ssd_batch(xh, dt, bm, cm, a, *, chunk: int):

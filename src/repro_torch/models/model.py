@@ -229,7 +229,7 @@ def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
             cache["enc"] = xkv
     x = L.rmsnorm(x, params.final_ln, cfg.norm_eps)
     head = params.head if params.head is not None else params.embed.T
-    return x @ head, cache
+    return L.matmul(x, head), cache
 
 
 def loss_fn(cfg: ModelConfig, params: LM, tokens: torch.Tensor,

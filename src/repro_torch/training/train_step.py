@@ -72,7 +72,7 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig,
             tok, lab, xk = micro(tokens), micro(labels), micro(xkv)
             # float32 accumulators: .grad would sum in the parameters'
             # dtype (bf16 by default)
-            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            loss = 0.0
             grads = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in params.named_parameters()}
             for a in range(accum_steps):
@@ -89,11 +89,17 @@ def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig,
         grad_norm = opt.global_norm(grads)
         new_opt = opt.apply_updates(params, grads, state["opt"], ocfg,
                                     grad_norm=grad_norm)
-        metrics = {"loss": loss, "grad_norm": grad_norm,
+        metrics = {"loss": _whole(loss), "grad_norm": _whole(grad_norm),
                    "step": new_opt["step"]}
         return {"params": params, "opt": new_opt}, metrics
 
     return train_step
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric as every rank reads it: a DTensor's full value (a loss
+    over batch shards is a partial mean until it is reduced)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_forward_loss(cfg: ModelConfig, has_xkv: bool = False):

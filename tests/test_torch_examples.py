@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -33,6 +34,7 @@ import repro.core.ga as jax_ga
 import repro.obs as jax_obs
 import repro.obs.journal as jax_journal
 import repro_torch.core.ga as port_ga
+import repro_torch.core.milp as port_milp
 import repro_torch.obs as port_obs
 import repro_torch.obs.journal as port_journal
 from repro_torch.examples import (chaos_fleet, control_plane, fleet_realloc,
@@ -172,9 +174,29 @@ def test_quickstart_example_runs(monkeypatch, capsys):
 PLAN_TOPOLOGY_NODES = 1200
 
 
+def node_capped(solve, nodes: int):
+    """`scipy.optimize.milp` with HiGHS's branch-and-bound capped at
+    `nodes` per solve.  scipy reports the expired cap as status 4 (a
+    HiGHS model status it does not know, kSolutionLimit); it is given
+    status 1, the one an expired time limit gets, so that the planner
+    keeps the incumbent as it does at a time limit."""
+    from scipy.optimize._highspy._core import HighsModelStatus
+
+    def run(*args, options=None, **kw):
+        res = solve(*args, options={**(options or {}), "node_limit": nodes},
+                    **kw)
+        code = re.search(r"HiGHS Status (\d+):", res.message)
+        if res.status == 4 and code is not None and \
+                int(code.group(1)) == int(HighsModelStatus.kSolutionLimit):
+            res.status = 1
+        return res
+
+    return run
+
+
 def test_plan_topology_example_runs(monkeypatch, capsys):
-    """At gpt-7b, with the GA capped by generations and the MILP by a
-    node budget (the example's 240 s time limit kept as a backstop; both
+    """At gpt-7b, with the GA capped by generations and HiGHS by a node
+    budget (the example's 240 s time limit kept as a backstop; both
     through monkeypatch), so that the outcome does not hang on the
     machine's speed: under a 10 s limit the main solve found no incumbent
     when the machine was loaded and the example stopped after two
@@ -183,9 +205,9 @@ def test_plan_topology_example_runs(monkeypatch, capsys):
     monkeypatch.setattr(plan_topology, "GAOptions",
                         generation_capped(port_ga.GAOptions, 30))
     monkeypatch.setattr(plan_topology, "MILPOptions",
-                        lambda **kw: milp(**{**kw, "mip_rel_gap": 0.05,
-                                             "node_limit":
-                                             PLAN_TOPOLOGY_NODES}))
+                        lambda **kw: milp(**{**kw, "mip_rel_gap": 0.05}))
+    monkeypatch.setattr(port_milp, "milp",
+                        node_capped(port_milp.milp, PLAN_TOPOLOGY_NODES))
     plan_topology.main(["--arch", "gpt-7b", *CPU])
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "gpt-7b: 24 tasks, 4 pods"

@@ -110,10 +110,13 @@ def test_serve_main_is_seeded(capsys):
 
 
 def test_serve_main_mesh_path_equals_the_plain_steps(capsys):
-    """`serve.main` places parameters and cache on a one-device mesh
-    (--model-parallel 1, or 4 clamped to the one rank): its tokens and
-    last logits equal the plain prefill and decode steps from the same
-    seed, bit for bit."""
+    """With a process group (a world of one rank, as `torchrun
+    --nproc-per-node 1` gives), `serve.main` places parameters, cache and
+    inputs on a one-device mesh (--model-parallel 1, or 4 clamped to the
+    one rank): its tokens and last logits equal the plain prefill and
+    decode steps from the same seed, bit for bit."""
+    from repro_torch.launch.mesh import make_host_mesh
+    make_host_mesh(1, "cpu")
     argv = ["--arch", "qwen3-0.6b", "--reduce", "--batch", "2",
             "--prompt-len", "6", "--decode-steps", "3", "--device", "cpu"]
     runs = [serve.main(argv + ["--model-parallel", mp]) for mp in "14"]

@@ -497,10 +497,13 @@ def test_restore_with_shardings_on_one_device(tmp_path):
 
 
 def test_train_main_mesh_path_equals_the_plain_step(capsys):
-    """`launch.train.main` places its state on a one-device mesh
-    (--model-parallel 1, or 4 clamped to the one rank): its losses and
-    final parameters equal a plain loop of the same step from the same
-    seed, bit for bit."""
+    """With a process group (a world of one rank, as `torchrun
+    --nproc-per-node 1` gives), `launch.train.main` places its state and
+    batches on a one-device mesh (--model-parallel 1, or 4 clamped to the
+    one rank): its losses and final parameters equal a plain loop of the
+    same step from the same seed, bit for bit."""
+    from repro_torch.launch.mesh import make_host_mesh
+    make_host_mesh(1, "cpu")
     argv = ["--arch", "qwen3-0.6b", "--reduce", "--steps", "3",
             "--batch", "2", "--seq", "8", "--log-every", "100",
             "--device", "cpu"]
