@@ -155,9 +155,14 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               for the placed state and batch, the FLOPs against a
               FlopCounterMode count of the step, temporaries plus
               arguments against the peak (printed, not gated); (d) the
-              reference quick test's 6 dry-run cells on the 2 x 16 x 16
-              mesh of 512 fake ranks, in a process of its own: 0 errors,
-              512 devices; (e) the legacy GA at gpt-7b on the card under
+              20 quick dry-run cells (the ten architectures reduced, at
+              train_4k and decode_32k) on the 2 x 16 x 16 mesh of 512
+              fake ranks, in a process of its own: 0 errors, 512
+              devices, and each cell's FLOPs per device at most 1.1x
+              and its collective bytes per device at most 2x the
+              reference's (a table of the reference's figures, held
+              against a live run by tests/test_torch_shardplan*.py);
+              (e) the legacy GA at gpt-7b on the card under
               a generation cap: fill_maxmin once per trip, its x scored
               on the card as on the numpy DES, the vectorized GA no
               worse; (f) the sharded step on more than one rank:
@@ -300,11 +305,41 @@ TRAIN_ACCUM = 4
 TRAIN_ACCUM_LOSS_REL, TRAIN_ACCUM_PARAM_ABS = 1e-4, 5e-3
 # [dist]: steps of train.main against the plain step loop; the ring's
 # ranks and input (tests/test_distributed.py: seed 0, x of (4, 1000));
-# the reference quick dry-run test's cells; the legacy GA's depth
+# the quick dry-run cells (the ten architectures reduced, two shapes, on
+# the 2 x 16 x 16 mesh) and the bounds on their per-device FLOPs and
+# collective bytes against the reference's; the legacy GA's depth
 DIST_TRAIN_STEPS = 5
 DIST_RING_RANKS, DIST_RING_SIZE = 4, 1000
-DIST_QUICK_ARCHS = ("qwen3-0.6b", "granite-moe-1b-a400m", "mamba2-130m")
 DIST_QUICK_SHAPES = ("train_4k", "decode_32k")
+DIST_FLOPS_BOUND, DIST_BYTES_BOUND = 1.1, 2.0
+# (FLOPs, collective bytes) per device of each quick cell in the
+# reference's dry run (`python -m repro.launch.dryrun --quick --mesh multi
+# --shape train_4k,decode_32k`: its compiled, partitioned HLO on 512 fake
+# XLA host devices; JAX does not run on the card, and
+# tests/test_torch_shardplan*.py hold this table against a live run)
+DIST_REF = {
+    ("jamba-1.5-large-398b", "train_4k"): (2_162_540_544, 113_111_376),
+    ("jamba-1.5-large-398b", "decode_32k"): (1_743_616, 85_960),
+    ("yi-6b", "train_4k"): (58_720_256, 6_640_704),
+    ("yi-6b", "decode_32k"): (61_440, 12_656),
+    ("qwen2.5-14b", "train_4k"): (58_720_256, 6_648_920),
+    ("qwen2.5-14b", "decode_32k"): (61_440, 12_656),
+    ("phi3-mini-3.8b", "train_4k"): (62_914_560, 6_902_848),
+    ("phi3-mini-3.8b", "decode_32k"): (65_536, 13_248),
+    ("qwen3-0.6b", "train_4k"): (58_720_256, 6_641_728),
+    ("qwen3-0.6b", "decode_32k"): (61_440, 12_704),
+    ("mamba2-130m", "train_4k"): (41_975_808, 5_747_368),
+    ("mamba2-130m", "decode_32k"): (35_328, 3_552),
+    ("llama-3.2-vision-11b", "train_4k"): (169_377_792, 18_346_224),
+    ("llama-3.2-vision-11b", "decode_32k"): (178_688, 31_448),
+    ("whisper-large-v3", "train_4k"): (79_691_776, 12_024_952),
+    ("whisper-large-v3", "decode_32k"): (337_920, 15_296),
+    ("grok-1-314b", "train_4k"): (440_401_920, 22_520_896),
+    ("grok-1-314b", "decode_32k"): (432_128, 29_040),
+    ("granite-moe-1b-a400m", "train_4k"): (1_648_361_472, 72_852_544),
+    ("granite-moe-1b-a400m", "decode_32k"): (1_611_776, 78_192),
+}
+DIST_QUICK_ARCHS = tuple(dict.fromkeys(a for a, _ in DIST_REF))
 DIST_GA_GENERATIONS = 6
 # (f): the sharded launchers' ranks and arguments, and the tolerances of
 # tests/test_torch_multirank.py
@@ -3235,8 +3270,10 @@ def _dist_predict(mesh) -> None:
 
 
 def _dist_dryrun() -> None:
-    """(d): the quick cells on the 2 x 16 x 16 mesh, in a process of its
-    own (the fake process group is process-global)."""
+    """(d): the 20 quick cells on the 2 x 16 x 16 mesh, in a process of
+    its own (the fake process group is process-global), each cell's
+    FLOPs and collective bytes per device against the reference's
+    (`DIST_REF`) within DIST_FLOPS_BOUND and DIST_BYTES_BOUND."""
     out_dir = ROOT / "build" / "dist_dryrun"
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -3247,22 +3284,36 @@ def _dist_dryrun() -> None:
         timeout=600, cwd=ROOT, env={**os.environ,
                                     "PYTHONPATH": str(ROOT / "src")})
     wall = time.perf_counter() - t0
-    cells = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+    cells = [json.loads((out_dir / f"multi_pod_2x16x16__{a}__{s}.json")
+                        .read_text()) for a, s in DIST_REF
+             if (out_dir / f"multi_pod_2x16x16__{a}__{s}.json").exists()]
+    over = []
     for c in cells:
-        if c["status"] == "ok":
-            log(f"[dist] dry run {c['mesh']} {c['arch']} {c['shape']}: "
-                f"{c['devices']} devices, {c['flops_per_device']:.0f} "
-                f"FLOPs/device, arguments {c['memory']['argument_bytes']} "
-                f"B, collectives {json.dumps(c['collectives'])}")
+        if c["status"] != "ok":
+            continue
+        ref_flops, ref_bytes = DIST_REF[(c["arch"], c["shape"])]
+        flops, coll = c["flops_per_device"], c["collectives"]["total"]
+        fx, bx = flops / ref_flops, coll / ref_bytes
+        log(f"[dist] dry run {c['mesh']} {c['arch']} {c['shape']}: "
+            f"{c['devices']} devices, FLOPs/device {flops:.0f} (reference "
+            f"{ref_flops}, x{fx:.4f}), collective bytes/device {coll:.0f} "
+            f"(reference {ref_bytes}, x{bx:.4f}), arguments "
+            f"{c['memory']['argument_bytes']} B, collectives "
+            f"{json.dumps(c['collectives'])}")
+        if fx > DIST_FLOPS_BOUND or bx > DIST_BYTES_BOUND:
+            over.append(f"{c['arch']} {c['shape']} FLOPs x{fx:.4f} bytes "
+                        f"x{bx:.4f}")
     errors = sum(c["status"] == "error" for c in cells)
     log(f"[dist] dry run, {len(cells)} quick cells: "
-        f"{sum(c['status'] == 'ok' for c in cells)} ok, {errors} errors "
-        f"({wall:.1f} s)")
-    if run.returncode != 0 or errors or len(cells) != \
-            len(DIST_QUICK_ARCHS) * len(DIST_QUICK_SHAPES) or \
+        f"{sum(c['status'] == 'ok' for c in cells)} ok, {errors} errors, "
+        f"{len(over)} over the bounds (FLOPs x{DIST_FLOPS_BOUND}, bytes "
+        f"x{DIST_BYTES_BOUND} the reference's) ({wall:.1f} s)")
+    if run.returncode != 0 or errors or len(cells) != len(DIST_REF) or \
             any(c.get("devices") != 512 for c in cells):
         fail(f"[dist] dry run: rc {run.returncode}: "
              f"{run.stdout[-1500:]} {run.stderr[-1500:]}")
+    if over:
+        fail(f"[dist] dry run cells over the bounds: {over}")
 
 
 def _dist_legacy_ga() -> int:

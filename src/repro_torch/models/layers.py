@@ -26,12 +26,17 @@ DTensors: tensors made on the spot (positions, masks) are replicated on
 the mesh (`like`); every product is `einsum`/`matmul`, which settles each
 mesh dim on the einsum's letters and multiplies the local shards; the
 streaming attention loop runs on each device's (batch, heads) shard
-(`_flash_on_shards`); and the embedding lookup, the MoE's per-sequence
-sort and scatter and the SSM scan run on each device's batch shard
-(`_batch_local`), where the reference's `vmap` keeps
-them local to the batch shard.  Every redistribution of an operand is
-explicit; DTensor's own rules are left only the elementwise ops and
-reductions between the products.
+(`_flash_on_shards`); the MoE's per-sequence sort and scatter run on
+each device's batch shard (`_batch_local`), where the reference's `vmap`
+keeps them local to the batch shard.  Each device does its share of the
+work as the reference's partitioner splits it: the embedding lookup is
+vocab-parallel (`embed_lookup`); K/V projections whose weight is
+replicated meet q's head_dim shard (`_on_head_dim`), so the KV cache and
+the attention products are computed on that shard; and the SSM scan runs
+on shards of the SSM heads where the model axis divides them
+(`_ssd_on_heads`), else per batch shard.  Every redistribution of an
+operand is explicit; DTensor's own rules are left only the elementwise
+ops and reductions between the products.
 """
 from __future__ import annotations
 
@@ -44,6 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (P, axis_sizes, data_axes,
@@ -180,14 +187,15 @@ class _DenseGrad(torch.autograd.Function):
 def _on_shards(fn, args: tuple, in_pl: tuple, out_pl: tuple,
                out_shape=None):
     """fn(*local shards) -> its output(s) as DTensors of placements
-    `out_pl` (a tuple of outputs alike) and global shape `out_shape` (by
-    default the local one scaled by the shards).  Each DTensor in `args`
-    is first redistributed to its placements in `in_pl` (explicitly: the
-    collectives this costs are the region's).  The gradient of an input
-    replicated on a mesh dim where the outputs are not is a partial sum
-    there."""
+    `out_pl` (a tuple of outputs alike, or a list of one placements tuple
+    per output) and global shape `out_shape` (by default the local one
+    scaled by the shards).  Each DTensor in `args` is first redistributed
+    to its placements in `in_pl` (explicitly: the collectives this costs
+    are the region's).  The gradient of an input replicated on a mesh dim
+    where an output is not is a partial sum there."""
     dm = next(a for a in args if isinstance(a, DTensor)).device_mesh
-    out_pl = tuple(out_pl)
+    each = isinstance(out_pl[0], (tuple, list))
+    outs_pl = [tuple(o) for o in out_pl] if each else [tuple(out_pl)]
     local = []
     for a, pl in zip(args, in_pl):
         if not isinstance(a, DTensor):
@@ -196,24 +204,27 @@ def _on_shards(fn, args: tuple, in_pl: tuple, out_pl: tuple,
         pl = tuple(pl)
         if tuple(a.placements) != pl:
             a = a.redistribute(dm, pl)
-        grad = tuple(Partial() if isinstance(p, Replicate)
-                     and not isinstance(o, Replicate) else p
-                     for p, o in zip(pl, out_pl))
+        grad = tuple(Partial() if isinstance(p, Replicate) and any(
+            not isinstance(o[i], Replicate) for o in outs_pl) else p
+            for i, p in enumerate(pl))
         local.append(_DenseGrad.apply(a.to_local(grad_placements=grad)))
     out = fn(*local)
 
-    def wrap(t):
+    def wrap(t, pl):
         shape = list(t.shape) if out_shape is None else list(out_shape)
         if out_shape is None:
-            for p, n in zip(out_pl, dm.shape):
+            for p, n in zip(pl, dm.shape):
                 if isinstance(p, Shard):
                     shape[p.dim] *= n
         # the global stride given is row-major: so is the local shard
-        return DTensor.from_local(t.contiguous(), dm, out_pl,
+        return DTensor.from_local(t.contiguous(), dm, pl,
                                   run_check=False, shape=torch.Size(shape),
                                   stride=_contiguous(shape))
 
-    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+    if not isinstance(out, tuple):
+        return wrap(out, outs_pl[0])
+    return tuple(wrap(t, outs_pl[i] if each else outs_pl[0])
+                 for i, t in enumerate(out))
 
 
 def _settled(t: DTensor) -> list:
@@ -294,26 +305,77 @@ def _batch_local(fn, batch_args: tuple, param_args: tuple = ()):
         # DTensors, each rank would take it for its own shard
         raise TypeError("a batch-local region got DTensors and plain "
                         "tensors together; place every input on the mesh")
-    hints = _HINTS.get()
-    mesh = hints["mesh"] if hints is not None else args[0].device_mesh
-    data = data_axes(mesh)
-    b = batch_args[0].shape[0]
-    batch = placements(P(data if b % math.prod(
-        axis_sizes(mesh)[a] for a in data) == 0 else None), mesh)
-    rep = placements(P(), mesh)
+    batch = _batch_placements(args[0], batch_args[0].shape[0])
+    rep = (Replicate(),) * len(batch)
     return _on_shards(fn, args, (*(batch,) * len(batch_args),
                                  *(rep,) * len(param_args)), batch)
+
+
+def _mesh_of(x: DTensor):
+    """The logical mesh of a run: the hints' (a `FoldedMesh` names the
+    data axes its device mesh folds), else `x`'s device mesh."""
+    hints = _HINTS.get()
+    return hints["mesh"] if hints is not None else x.device_mesh
+
+
+def _batch_axes(mesh, b: int):
+    """The spec entry of a batch of `b`: the data axes where `b` divides
+    them, else None (replicated)."""
+    data = data_axes(mesh)
+    return data if b % math.prod(axis_sizes(mesh)[a] for a in data) == 0 \
+        else None
+
+
+def _batch_placements(x: DTensor, b: int) -> tuple:
+    """Placements of a (B, ...) tensor sharded on B over the data axes
+    where B divides them, else replicated."""
+    mesh = _mesh_of(x)
+    return placements(P(_batch_axes(mesh, b)), mesh)
 
 
 def _lookup(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     return embed[tokens]
 
 
+def _lookup_rows(tokens: torch.Tensor, rows: torch.Tensor, *, start: int
+                 ) -> torch.Tensor:
+    """Each token's row of a table shard holding the vocab rows [start,
+    start + len(rows)), zeros for a token outside it: summed over the
+    shards, the lookup.  Its gradient reaches the shard's own rows
+    only."""
+    local = tokens - start
+    hit = (local >= 0) & (local < rows.shape[0])
+    out = rows[torch.where(hit, local, 0)]
+    return out.masked_fill(~hit[..., None], 0)
+
+
 def embed_lookup(tokens: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """The (B, S, d) rows of `embed` for `tokens`: an index on plain
-    tensors; on a mesh, each batch shard indexes the whole table (DTensor
-    shards no lookup into a sharded table both ways)."""
-    return _batch_local(_lookup, (tokens,), (embed,))
+    tensors.  On a mesh, vocab-parallel: each device looks its batch
+    shard's tokens up in its own shard of the table, the rows of a
+    vocab-sharded table are partial sums (zeros for the tokens another
+    shard holds) settled by one all-reduce of the (B, S, d) rows, and
+    those of a d-sharded one are gathered; no device reads the whole
+    table."""
+    if not isinstance(embed, DTensor):
+        return _batch_local(_lookup, (tokens,), (embed,))
+    if not isinstance(tokens, DTensor):
+        raise TypeError("a lookup of plain tokens in a table on the mesh; "
+                        "place the tokens on the mesh")
+    dm = embed.device_mesh
+    batch = _batch_placements(embed, tokens.shape[0])
+    table, rows = _settled(embed), []
+    for i, b in enumerate(batch):
+        if isinstance(b, Shard) and isinstance(table[i], Shard):
+            table[i] = Replicate()     # no rule shards the table there
+        rows.append(b if isinstance(b, Shard) else Partial()
+                    if table[i] == Shard(0) else Shard(2)
+                    if table[i] == Shard(1) else Replicate())
+    _, offset = compute_local_shape_and_global_offset(embed.shape, dm, table)
+    out = _on_shards(functools.partial(_lookup_rows, start=offset[0]),
+                     (tokens, embed), (batch, table), rows,
+                     (*tokens.shape, embed.shape[1]))
+    return out.redistribute(dm, batch)
 
 
 def _normal(shape, std: float, dtype, device, generator) -> nn.Parameter:
@@ -508,6 +570,25 @@ class Attention(nn.Module):
                                     if norm else None)
 
 
+def _on_head_dim(w: torch.Tensor, q: torch.Tensor, src: torch.Tensor
+                 ) -> torch.Tensor:
+    """The (d, KV, hd) K or V weight `w` where it meets q's head_dim
+    shard: on each mesh dim where q (B, S, H, hd) is sharded on head_dim
+    and `w` and the K/V source are replicated (KV heads that do not divide
+    the model axis), `w`'s local slice of head_dim, taken without a
+    collective; so k and v come out on the head_dim shard that q, the KV
+    cache and the attention products hold, as the reference partitions
+    them, instead of whole on every device.  `w` itself elsewhere."""
+    if not isinstance(q, DTensor):
+        return w
+    want = tuple(Shard(2) if pq == Shard(3) and isinstance(pw, Replicate)
+                 and isinstance(ps, Replicate) else pw
+                 for pq, pw, ps in zip(q.placements, w.placements,
+                                       src.placements))
+    return w if want == tuple(w.placements) else \
+        w.redistribute(w.device_mesh, want)
+
+
 def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, causal: bool = True,
                     cache: dict | None = None,
@@ -524,8 +605,8 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     """
     src = kv_source if kv_source is not None else x
     q = einsum("bsd,dhk->bshk", x, p.wq)
-    k = einsum("bsd,dhk->bshk", src, p.wk)
-    v = einsum("bsd,dhk->bshk", src, p.wv)
+    k = einsum("bsd,dhk->bshk", src, _on_head_dim(p.wk, q, src))
+    v = einsum("bsd,dhk->bshk", src, _on_head_dim(p.wv, q, src))
     if p.bq is not None:
         q = q + p.bq
         k = k + p.bk
@@ -696,13 +777,32 @@ class Mamba2(nn.Module):
         self.out_proj = init((d_in, d), std)
 
 
-def _mamba_split(p: Mamba2, cfg: ModelConfig, x: torch.Tensor):
+def _mamba_split(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
+                 whole: bool = False):
+    """in_proj's output split into z | xbc | dt; with `whole`, a fused dim
+    sharded on the mesh is gathered first (its split does not fall on the
+    shard boundaries)."""
     d_in = cfg.ssm_expand * cfg.d_model
     n = cfg.ssm_state
     nh = d_in // cfg.ssm_head_dim
     zxbcdt = matmul(x, p.in_proj)
+    if whole and isinstance(zxbcdt, DTensor):
+        want = tuple(Replicate() if q == Shard(2) else q
+                     for q in _settled(zxbcdt))
+        if want != tuple(zxbcdt.placements):
+            zxbcdt = zxbcdt.redistribute(zxbcdt.device_mesh, want)
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * n, nh], dim=-1)
     return z, xbc, dt, d_in, n, nh
+
+
+def _scan_on_heads(x: torch.Tensor, cfg: ModelConfig) -> bool:
+    """Whether the chunked scan runs on shards of the SSM heads: a run on
+    a mesh whose model axis divides them."""
+    if not isinstance(x, DTensor):
+        return False
+    m = axis_sizes(_mesh_of(x)).get("model", 1)
+    nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    return m > 1 and nh % m == 0
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -732,12 +832,14 @@ def mamba_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     states, as the reference's does).
     """
     b, s, _ = x.shape
-    z, xbc, dt, d_in, n, nh = _mamba_split(p, cfg, x)
+    decode = cache is not None and s == 1
+    heads = not decode and _scan_on_heads(x, cfg)
+    z, xbc, dt, d_in, n, nh = _mamba_split(p, cfg, x, whole=heads)
     hd = cfg.ssm_head_dim
     a = -torch.exp(p.A_log)                                   # (nh,)
     dt = F.softplus(dt.float() + p.dt_bias)                   # (B,S,nh)
 
-    if cache is not None and s == 1:
+    if decode:
         xbc_conv, conv_state = _causal_conv(xbc, p.conv_w, p.conv_b,
                                             cache["conv"])
         xs, bm, cm = torch.split(xbc_conv, [d_in, n, n], dim=-1)
@@ -749,6 +851,10 @@ def mamba_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
         upd = (dtb[..., None] * xh[:, 0])[..., None] * bt[:, None, None, :]
         ssm_state = cache["ssm"] * da[..., None, None] + upd  # (B,nh,hd,n)
         y = einsum("bhpn,bn->bhp", ssm_state, ct)[:, None]
+    elif heads:
+        y, ssm_state, conv_state = _ssd_on_heads(p, xbc, dt, a, d_in=d_in,
+                                                 n=n, hd=hd, chunk=chunk)
+        z = z.redistribute(z.device_mesh, y.placements)
     else:
         xbc_conv, conv_state = _causal_conv(xbc, p.conv_w, p.conv_b)
         xs, bm, cm = torch.split(xbc_conv, [d_in, n, n], dim=-1)
@@ -768,15 +874,90 @@ def mamba_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     return matmul(out, p.out_proj), new_cache
 
 
+def _ssd_on_heads(p: Mamba2, xbc: DTensor, dt: DTensor, a: DTensor, *,
+                  d_in: int, n: int, hd: int, chunk: int):
+    """The conv and the chunked scan on each device's shard of the SSM
+    heads (the model axis divides nh) and its batch shard.  B and C, which
+    every head reads, are convolved whole on each device; their (L x L)
+    chunk scores, shared by the heads, are computed on each device's rows
+    of the chunk and gathered; x's channels, dt and A on the device's
+    heads are convolved and scanned there.  Returns y (B, S, d_in) and the
+    final SSM state (B, nh, hd, n), both sharded on the heads as the
+    cache's spec shards the state, and the conv window (B, K-1, d_in +
+    2n)."""
+    mesh = _mesh_of(xbc)
+    dm = xbc.device_mesh
+    bd = _batch_axes(mesh, xbc.shape[0])
+    pl = functools.partial(placements, mesh=mesh)
+    heads, whole, rep = pl(P(bd, None, "model")), pl(P(bd)), pl(P())
+    xs, bc = torch.split(xbc, [d_in, 2 * n], dim=-1)
+    bc, bc_state = _on_shards(functools.partial(_conv_from, c0=d_in),
+                              (bc, p.conv_w, p.conv_b), (whole, rep, rep),
+                              whole)
+    nc = -(-xbc.shape[1] // chunk)
+    rows = pl(P(bd, None, "model", None)) \
+        if chunk % axis_sizes(mesh)["model"] == 0 else whole
+    shape = (xbc.shape[0], nc, chunk, chunk)
+    local, first = compute_local_shape_and_global_offset(shape, dm, rows)
+    scores = _on_shards(
+        functools.partial(_chunk_scores, chunk=chunk,
+                          rows=slice(first[2], first[2] + local[2])),
+        (bc,), (whole,), rows, shape).redistribute(dm, whole)
+    _, first = compute_local_shape_and_global_offset(a.shape, dm,
+                                                     pl(P("model")))
+    y, state, xs_state = _on_shards(
+        functools.partial(_ssd_heads, hd=hd, c0=first[0] * hd, chunk=chunk),
+        (xs, dt, p.conv_w, p.conv_b, a, bc, scores),
+        (heads, heads, rep, rep, pl(P("model")), whole, whole),
+        [heads, pl(P(bd, "model")), heads])
+    conv_state = torch.cat([xs_state.redistribute(dm, whole), bc_state],
+                           dim=-1)
+    return y, state, conv_state
+
+
+def _conv_from(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+               c0: int):
+    """`_causal_conv` of the channels from c0 on of the whole weight."""
+    return _causal_conv(xbc, w[:, c0:], b[c0:])
+
+
+def _chunk_scores(bc: torch.Tensor, *, chunk: int, rows: slice
+                  ) -> torch.Tensor:
+    """The `rows` of each chunk's (L x L) scores C_l . B_m from the
+    convolved (B, S, 2n) B and C channels (`_ssd_chunked`'s, S padded to
+    whole chunks)."""
+    b, s, n2 = bc.shape
+    nc = -(-s // chunk)
+    if nc * chunk - s:
+        bc = F.pad(bc, (0, 0, 0, nc * chunk - s))
+    bm, cm = bc.float().reshape(b, nc, chunk, n2).split(n2 // 2, dim=-1)
+    return torch.einsum("bcln,bcmn->bclm", cm[:, :, rows], bm)
+
+
+def _ssd_heads(xs, dt, w, cb, a, bc, scores, *, hd: int, c0: int,
+               chunk: int):
+    """One device's conv and scan: xs (B, S, nh_l * hd) its channels from
+    x's channel c0, dt (B, S, nh_l), a (nh_l,); w and cb the whole conv
+    weight and bias, bc (B, S, 2n) the convolved B and C channels, scores
+    their chunk scores."""
+    b, s, c = xs.shape
+    xs, xs_state = _causal_conv(xs, w[:, c0:c0 + c], cb[c0:c0 + c])
+    bm, cm = torch.split(bc, [bc.shape[-1] // 2] * 2, dim=-1)
+    y, state = _ssd_chunked(xs.reshape(b, s, c // hd, hd).float(), dt, a,
+                            bm.float(), cm.float(), chunk, scores)
+    return y.reshape(b, s, c), state, xs_state
+
+
 def _ssd_batch(xh, dt, bm, cm, a, *, chunk: int):
     return _ssd_chunked(xh, dt, a, bm, cm, chunk)
 
 
-def _ssd_chunked(xh, dt, a, bm, cm, chunk: int):
+def _ssd_chunked(xh, dt, a, bm, cm, chunk: int, scores=None):
     """State-space duality (Mamba-2): intra-chunk quadratic attention-like
     term + inter-chunk recurrent state passing.
 
-    xh: (B,S,nh,hd) f32; dt: (B,S,nh); a: (nh,); bm/cm: (B,S,n).
+    xh: (B,S,nh,hd) f32; dt: (B,S,nh); a: (nh,); bm/cm: (B,S,n); scores:
+    the chunks' (B,nc,L,L) C.B products where computed already.
     S is padded up to a multiple of `chunk` and the result sliced back.
     Returns y: (B,S,nh,hd), final_state: (B,nh,hd,n).
     """
@@ -804,7 +985,8 @@ def _ssd_chunked(xh, dt, a, bm, cm, chunk: int):
     # mask *before* exp: above the diagonal seg is positive and overflows
     seg = seg.masked_fill(~tri[None, None, :, :, None], NEG)
     decay = torch.exp(seg)
-    scores = torch.einsum("bcln,bcmn->bclm", cc, bc)        # (B,nc,L,L)
+    if scores is None:
+        scores = torch.einsum("bcln,bcmn->bclm", cc, bc)    # (B,nc,L,L)
     w = scores[..., None] * decay * dtc[:, :, None, :, :]   # (B,nc,L,L,nh)
     y_intra = torch.einsum("bclmh,bcmhp->bclhp", w, xc)
 

@@ -166,6 +166,22 @@ def _remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+def _remat_group(cfg: ModelConfig, group, x: torch.Tensor, positions, xkv,
+                 pos_scalar: int) -> torch.Tensor:
+    """One pattern period of layers, the reference's remat schedule: the
+    caller recomputes the whole group in the backward pass, and where the
+    period holds more than one layer each layer is recomputed again on its
+    own (the reference's per-layer `jax.checkpoint` inside its group
+    body), so every layer's forward runs three times in a step."""
+    for j, p in enumerate(group):
+        if len(group) > 1:
+            x = _remat(_apply_layer, cfg, j, p, x, positions, None, xkv,
+                       pos_scalar)
+        else:
+            x = _apply_layer(cfg, j, p, x, positions, None, xkv, pos_scalar)
+    return x
+
+
 def _encoder_layer(cfg: ModelConfig, p: EncoderLayer, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
     h, _ = L.attention_block(p.attn, cfg, L.rmsnorm(x, p.ln1, cfg.norm_eps),
@@ -197,8 +213,9 @@ def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     vlm / encdec families.  A given cache is updated in place (its K/V
     and states written, `pos` advanced by S, the modality source stored
     at prefill for the decode steps to reuse) and returned.  `remat`
-    recomputes each layer's activations in the backward pass (without a
-    cache, when autograd records); the values do not change.
+    recomputes the layers' activations in the backward pass, on the
+    reference's schedule (`_remat_group`; without a cache, when autograd
+    records); the values do not change.
     """
     _, s = tokens.shape
     dev = tokens.device
@@ -215,11 +232,12 @@ def forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
 
     g = cfg.group_size
     remat = remat and cache is None and torch.is_grad_enabled()
-    for i, p in enumerate(params.layers):
-        if remat:
-            x = _remat(_apply_layer, cfg, i % g, p, x, positions, None, xkv,
-                       pos_scalar)
-        else:
+    if remat:
+        for i in range(0, len(params.layers), g):
+            x = _remat(_remat_group, cfg, params.layers[i:i + g], x,
+                       positions, xkv, pos_scalar)
+    else:
+        for i, p in enumerate(params.layers):
             cj = cache["layers"][i] if cache is not None else None
             x = _apply_layer(cfg, i % g, p, x, positions, cj, xkv,
                              pos_scalar)

@@ -3,8 +3,8 @@
 
 `make_train_step` builds a (state, batch) -> (state, metrics) function:
 gradients by autograd of the plain model (microbatches accumulated in
-float32 buffers), per-layer remat, then the AdamW update in place.  On a
-mesh (parameters and batch DTensors, placed by
+float32 buffers), remat on the reference's schedule, then the AdamW
+update in place.  On a mesh (parameters and batch DTensors, placed by
 `distributed.sharding`), the same code runs sharded.
 
 `make_prefill_step` / `make_decode_step` are the serving entry points;

@@ -9,7 +9,7 @@ against the reference's (`repro.launch.dryrun`, `launch.hloanalysis`).
   seq_shard_attention, seq_parallel, skipped or not) and argument bytes
   against the reference's, from its specs and `jax.eval_shape` shapes;
 - FLOPs on a 1 x 1 mesh against the reference's analysis of its compiled
-  step (one CPU device) within rel 1e-2;
+  step (one CPU device) within rel 1e-2, for the ten architectures;
 - the reference quick test's 6 cells on the 512-rank mesh, each
   architecture in a process of its own (the fake process group is
   process-global).
@@ -237,12 +237,16 @@ def test_cells_decide_and_place_as_the_reference(arch):
                 want["argument_bytes"], tag
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "yi-6b"])
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
 def test_flops_on_one_device_match_reference_hlo(arch):
     """A 1 x 1 mesh (a world-size-1 gloo group): the train cell at the
-    quick shape (reduced config, batch 32 x seq 256, 16 microbatches,
-    remat), FLOPs per device against the reference's `hloanalysis` of its
-    compiled step on one CPU device."""
+    quick shape (reduced config, batch 32 x seq 256 with the modality
+    input where the architecture takes one, 16 microbatches, remat),
+    FLOPs per device against the reference's `hloanalysis` of its
+    compiled step on one CPU device.  The reference recomputes a period
+    of more than one layer twice (its group and each layer are
+    checkpointed): llama-3.2-vision's and jamba's steps count that work
+    too."""
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh(1, "cpu")
     rarch, shape = dryrun.quick(REGISTRY[arch], SHAPES["train_4k"])
@@ -259,7 +263,12 @@ def test_flops_on_one_device_match_reference_hlo(arch):
     batch = {k: jax.ShapeDtypeStruct((shape.global_batch, shape.seq_len),
                                      jnp.int32) for k in ("tokens",
                                                           "labels")}
-    step = jts.make_train_step(jcfg, ocfg, accum_steps=16, remat=True)
+    xl = dryrun._xkv_len(rarch.config)
+    if xl:
+        batch["xkv"] = jax.ShapeDtypeStruct(
+            (shape.global_batch, xl, jcfg.d_model), jnp.bfloat16)
+    step = jts.make_train_step(jcfg, ocfg, accum_steps=16, remat=True,
+                               has_xkv=bool(xl))
     cost = analyze(jax.jit(step).lower(state, batch).compile().as_text())
     assert cell["flops_per_device"] == pytest.approx(cost.flops, rel=1e-2)
 

@@ -38,6 +38,7 @@ TRAIN = ["--reduce", "--steps", "2", "--batch", "4", "--seq", "8",
 SERVE = ["--reduce", "--batch", "4", "--prompt-len", "8",
          "--decode-steps", "2", "--device", "cpu"]
 MP = ["--model-parallel", "2"]
+MP4 = ["--model-parallel", "4"]
 PARAM_ATOL = 1e-4
 
 _RANKS = textwrap.dedent("""
@@ -130,6 +131,46 @@ def test_train_main_on_four_ranks_matches_plain_loop(tmp_path, arch):
                                        atol=1e-5)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "whisper-large-v3",
+                                  "llama-3.2-vision-11b", "mamba2-130m"])
+def test_serve_main_on_four_model_ranks_matches_plain(tmp_path, arch):
+    """Serving on a (data 1, model 4) mesh, where the 2 or 4 KV heads do
+    not divide the model axis: the KV cache and the K/V projections of
+    self- and cross-attention (whisper's encoder frames, the vision
+    model's image patches) fall to head_dim shards, and the table is
+    looked up vocab-parallel; mamba2's prefill scans on shards of its 16
+    SSM heads and writes its conv and SSM states into the sharded cache
+    that the decode steps read."""
+    ranks = _four_ranks(tmp_path, [("serve", ["--arch", arch, *SERVE,
+                                              *MP4])])
+    torch.set_num_threads(1)
+    s = serve.main(["--arch", arch, *SERVE])
+    for arrays, _ in ranks:
+        np.testing.assert_array_equal(arrays["tokens"], s["tokens"].numpy())
+        np.testing.assert_allclose(arrays["logits"], s["logits"].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_train_main_on_four_model_ranks_matches_plain(tmp_path):
+    """mamba2 training on a (data 1, model 4) mesh: the chunked scan on
+    shards of the 16 SSM heads, the chunk scores on shards of the chunk's
+    rows, and the tied head over the vocab-parallel table.  136 tokens:
+    two chunks of 128 (the state passed between them, the last one
+    padded), so every rank's rows of a chunk hold real positions."""
+    argv = ["--arch", "mamba2-130m", *TRAIN, "--seq", "136"]
+    ranks = _four_ranks(tmp_path, [("train", [*argv, *MP4])])
+    torch.set_num_threads(1)
+    plain = train.main(argv)
+    params = {n: p.detach().numpy()
+              for n, p in plain["state"]["params"].named_parameters()}
+    for arrays, meta in ranks:
+        np.testing.assert_allclose(meta["losses"], plain["losses"],
+                                   rtol=1e-5, atol=1e-6)
+        for n, p in params.items():
+            np.testing.assert_allclose(arrays[f"param/{n}"], p, rtol=1e-5,
+                                       atol=PARAM_ATOL, err_msg=n)
+
+
 _EINSUM = textwrap.dedent("""
     import sys
     import torch
@@ -211,6 +252,76 @@ def test_sharded_einsum_matches_einsum_on_whole_tensors(tmp_path):
     partial operand (summed first)."""
     script = tmp_path / "einsum.py"
     script.write_text(_EINSUM)
+    proc = subprocess.run(
+        [sys.executable, str(script), str(tmp_path / "store")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "HOME": str(tmp_path), "TMPDIR": str(tmp_path)})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+_LOOKUP = textwrap.dedent("""
+    import sys
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    # (table shape, the table's placement on the model dim of the (data,
+    # model) mesh: 0 vocab rows, 1 columns, "r" replicated)
+    CASES = [((12, 6), 0), ((13, 6), 1), ((12, 6), "r")]
+
+    def rank_main(rank, store):
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=4)
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from repro_torch.models import layers as L
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+
+        def put(t, pl):
+            return DTensor.from_local(t, mesh, [Replicate()] * 2,
+                                      run_check=False).redistribute(mesh, pl)
+
+        g = torch.Generator().manual_seed(0)
+        for shape, where in CASES:
+            table = torch.randn(shape, generator=g, dtype=torch.float64)
+            # repeated tokens: their gradients add up in one row
+            tokens = torch.randint(0, shape[0], (4, 5), generator=g)
+            tokens[0, :2] = tokens[1, 0]
+            r = torch.randn((4, 5, shape[1]), generator=g,
+                            dtype=torch.float64)
+            tp = [Replicate(), Replicate() if where == "r" else Shard(where)]
+            dt = put(table, tp).detach().requires_grad_()
+            out = L.embed_lookup(put(tokens, [Shard(0), Replicate()]), dt)
+            (out * put(r, [Shard(0), Replicate()])).sum().backward()
+            table.requires_grad_()
+            (table[tokens] * r).sum().backward()
+            for name, got, ref in (("rows", out, table[tokens]),
+                                   ("grad", dt.grad, table.grad)):
+                got = got.full_tensor()
+                if got.shape != ref.shape or not torch.allclose(
+                        got, ref, rtol=1e-12, atol=1e-12):
+                    raise AssertionError(f"{shape} {where}: {name}")
+            # on the model dim the gradient stays on the vocab shards (on
+            # the data dim it is the batch shards' pending sum)
+            if where == 0 and dt.grad.placements[1] != Shard(0):
+                raise AssertionError(f"gradient on {dt.grad.placements}")
+        dist.destroy_process_group()
+
+    if __name__ == "__main__":
+        mp.spawn(rank_main, args=(sys.argv[1],), nprocs=4)
+""")
+
+
+def test_sharded_lookup_matches_index_on_whole_tensors(tmp_path):
+    """`layers.embed_lookup` on a (data 2, model 2) mesh against indexing
+    the whole table (float64, within 1e-12): a vocab-sharded table (each
+    rank's rows, a partial sum settled by one all-reduce; the gradient
+    stays on the vocab shards), a column-sharded one (13 rows do not
+    divide the axis) and a replicated one, with repeated tokens."""
+    script = tmp_path / "lookup.py"
+    script.write_text(_LOOKUP)
     proc = subprocess.run(
         [sys.executable, str(script), str(tmp_path / "store")],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
