@@ -174,6 +174,13 @@ only; it imports nothing of JAX or of the JAX package `repro`.  Phases:
               their own (tests/test_torch_multirank.py's tolerances),
               after the phase has destroyed its process group.
 
+Right after [device], [sentinel] runs the port's static analysis
+(python -m repro_torch.analysis over its default paths) in a process of
+its own on the card's host: exit 0 (no finding), the findings and the
+inline suppressions by rule, its wall time, and the sanctioned host
+syncs inside TorchDES's event loop (1: the loop's exit test), which
+[des] prints again beside the host syncs per trip it measures.
+
 The kernels phase also holds fill_maxmin's member axis against its plain
 version: a sweep of 1-3 members, and the two members of each [robust]
 ensemble at 96 lanes (the sequence-length pair shares one CSR; the
@@ -408,6 +415,47 @@ def phase_device():
     log(f"[device] python {sys.version.split()[0]} torch {torch.__version__}"
         f" cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
     log(card)
+
+
+def _by_rule(items: list[dict]) -> str:
+    counts: dict[str, int] = {}
+    for it in items:
+        counts[it["rule"]] = counts.get(it["rule"], 0) + 1
+    return "{" + ", ".join(f"{k}: {v}" for k, v in sorted(counts.items())) \
+        + "}"
+
+
+def phase_sentinel() -> int:
+    """The port's Sentinel over its default paths, in a process of its
+    own: it must exit 0.  Returns the sanctioned host syncs inside
+    TorchDES's event loop (`_LaneDES._simulate`)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"python -m repro_torch.analysis exited {run.returncode}: "
+             f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
+    report = json.loads(run.stdout)
+    found, quiet = report["findings"], report["suppressed"]
+    log(f"[sentinel] python -m repro_torch.analysis: "
+        f"{report['files_analyzed']} files, {len(found)} findings "
+        f"{_by_rule(found)}, {len(quiet)} suppressed inline "
+        f"{_by_rule(quiet)}, {len(report['baselined'])} baselined; exit 0 "
+        f"in {wall:.2f} s wall")
+    loop = [q for q in quiet if q["rule"] == "RPR006"
+            and q["path"].endswith("core/des_torch.py")
+            and q["key"].startswith("_LaneDES._simulate:")]
+    sites = ", ".join(f"{q['path']}:{q['line']}" for q in loop)
+    log(f"[sentinel] sanctioned host syncs in TorchDES's event loop: "
+        f"{len(loop)} ({sites})")
+    if len(loop) != 1:
+        fail(f"expected 1 sanctioned host sync in the event loop, the "
+             f"Sentinel reports {len(loop)}")
+    return len(loop)
 
 
 def phase_build():
@@ -1172,7 +1220,7 @@ def _trip_ops(prof, trips: float, wall_s: float, top: int = 16) -> None:
             f"{dev_us / trips:9.3f} us")
 
 
-def phase_des(dag) -> None:
+def phase_des(dag, loop_syncs: int) -> None:
     """The DES at full width on the fused, per-round and plain paths."""
     import numpy as np
     import torch
@@ -1267,7 +1315,8 @@ def phase_des(dag) -> None:
             f"device busy {busy:.4f} s (profiled rerun), idle share "
             + (f"{1.0 - busy / wall:.4f}" if busy else "not measured")
             + f"; {syncs} host syncs in {trips:.0f} trips, "
-            f"{syncs / trips:.3f} per trip; {c['rounds']:.0f} rounds, "
+            f"{syncs / trips:.3f} per trip (sanctioned sync sites in the "
+            f"event loop, [sentinel]: {loop_syncs}); {c['rounds']:.0f} rounds, "
             f"{c['maxmin']} fill_maxmin, {c['launches']} fill_round launches")
         if first_fused:
             _trip_ops(prof, trips, prof_wall)
@@ -3388,6 +3437,7 @@ def main() -> int:
         return out
     phase_device()
     import torch
+    loop_syncs = timed("sentinel", phase_sentinel)
     timed("build", phase_build)
     dag = _megatron_462b()
     dags = (dag, *(_megatron_462b(s) for s in ROBUST_SEQ_LENS[1:]))
@@ -3402,7 +3452,7 @@ def main() -> int:
     tclosure, closure_steps = kernel_tclosure(dag)
     maxplus, paths_steps = kernel_maxplus(dag)
     walls["kernels"] = round(time.perf_counter() - t0, 1)
-    timed("des", phase_des, dag)
+    timed("des", phase_des, dag, loop_syncs)
     maxmin["launches"], waterfill["launches"], x = timed("plan", phase_plan,
                                                          dag)
     timed("plan gpt-7b", phase_small_parity)

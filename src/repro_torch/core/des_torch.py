@@ -575,7 +575,7 @@ class _LaneDES:
 
         for _ in range(self.max_events):
             run = torch.isfinite(t) & feasible
-            if not bool(run.any()):           # one host sync per trip
+            if not bool(run.any()):  # sentinel: ignore[RPR006] one sync per trip: the exit test
                 break
             _TRIPS.inc()
             active = started & ~done

@@ -11,7 +11,7 @@ import argparse
 import numpy as np
 
 from repro_torch.configs import PAPER_WORKLOADS, make_job
-from repro_torch.core.api import optimize
+from repro_torch.core.api import PlanRequest, plan
 from repro_torch.core.des_torch import DESOptions
 from repro_torch.core.ga import GAOptions
 from repro_torch.core.milp import MILPOptions
@@ -34,13 +34,13 @@ def main(argv: list[str] | None = None) -> None:
     print(f"{args.arch}: {dag.num_real_tasks} tasks, "
           f"{dag.cluster.num_pods} pods")
 
-    fast = optimize(dag, "delta-fast",
-                    ga_options=GAOptions(seed=0, time_limit=60,
-                                         des_options=des))
+    fast = plan(PlanRequest(dag=dag, method="delta-fast",
+                            ga_options=GAOptions(seed=0, time_limit=60,
+                                                 des_options=des)))
     print(f"delta-fast : NCT={fast.nct:.4f} ports={fast.total_ports}")
-    saved = optimize(dag, "delta-joint", port_min=True,
-                     ga_options=GAOptions(des_options=des),
-                     milp_options=MILPOptions(time_limit=240))
+    saved = plan(PlanRequest(dag=dag, method="delta-joint", port_min=True,
+                             ga_options=GAOptions(des_options=des),
+                             milp_options=MILPOptions(time_limit=240)))
     if saved.feasible:
         U = np.asarray(dag.cluster.port_limits)
         used = saved.x.sum(axis=1)
@@ -53,12 +53,12 @@ def main(argv: list[str] | None = None) -> None:
         boosted = dag_t.cluster.with_port_limits(U + (U - used))
         dag_b = build_comm_dag(job, inter_pod_gbps=400.0,
                                reverse_stages=True, cluster=boosted)
-        r0 = optimize(dag_t, "delta-fast",
-                      ga_options=GAOptions(seed=0, time_limit=60,
-                                           des_options=des))
-        r1 = optimize(dag_b, "delta-fast",
-                      ga_options=GAOptions(seed=0, time_limit=60,
-                                           des_options=des))
+        r0 = plan(PlanRequest(dag=dag_t, method="delta-fast",
+                              ga_options=GAOptions(seed=0, time_limit=60,
+                                                   des_options=des)))
+        r1 = plan(PlanRequest(dag=dag_b, method="delta-fast",
+                              ga_options=GAOptions(seed=0, time_limit=60,
+                                                   des_options=des)))
         print(f"co-tenant Model^T: NCT {r0.nct:.4f} -> {r1.nct:.4f} "
               f"after port reallocation")
 

@@ -48,7 +48,7 @@ def transitive_closure(a: torch.Tensor, *, backend: str = "auto"
     n = a.shape[0]
     for _ in range(max(1, math.ceil(math.log2(max(n, 2))))):
         nxt = tclosure_step(a, backend=backend)
-        if bool((nxt == a).all()):
+        if bool((nxt == a).all()):  # sentinel: ignore[RPR006] one per squaring step: the fixpoint
             return nxt
         a = nxt
     return a
@@ -77,7 +77,7 @@ def longest_paths(adj: torch.Tensor, *, backend: str = "auto"
     for _ in range(max(1, math.ceil(math.log2(max(n, 2))))):
         nxt = maxplus(d, d, backend=backend)
         nxt = torch.clamp_min(nxt, NEG_INF)
-        if torch.allclose(nxt, d):
+        if torch.allclose(nxt, d):  # sentinel: ignore[RPR006] one per squaring step: the fixpoint
             return nxt
         d = nxt
     return d

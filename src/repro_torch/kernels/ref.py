@@ -37,7 +37,7 @@ def transitive_closure_ref(a: torch.Tensor, max_steps: int | None = None
         1, math.ceil(math.log2(max(n, 2))))
     for _ in range(steps):
         nxt = tclosure_step_ref(a)
-        if bool((nxt == a).all()):
+        if bool((nxt == a).all()):  # sentinel: ignore[RPR006] one per squaring step: the fixpoint
             return nxt
         a = nxt
     return a
@@ -233,7 +233,7 @@ def progressive_filling(reduce: Callable[[torch.Tensor, torch.Tensor],
     con_task_x = con_task.expand(pop, m, -1)
     for _ in range(C + 1):
         lanes_on = unfrozen.any(1)
-        if not bool(lanes_on.any()):          # one host sync per round
+        if not bool(lanes_on.any()):  # sentinel: ignore[RPR006] one sync per round: the exit test
             break
         rounds += lanes_on
         used, denom = reduce(phi * active_f, unfrozen.to(f32))

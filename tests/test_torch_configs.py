@@ -74,8 +74,10 @@ def test_registry_names_match_reference():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_arch_spec_matches_reference(name):
-    assert dataclasses.asdict(port_configs.ALL_ARCHS[name]) == \
-        dataclasses.asdict(jax_configs.ALL_ARCHS[name])
+    port, ref = port_configs.ALL_ARCHS[name], jax_configs.ALL_ARCHS[name]
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    # the provenance strings, field by field
+    assert (port.source, port.notes) == (ref.source, ref.notes)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -136,6 +138,23 @@ def test_registry_moe_workloads_emit_ep_traffic():
             port_configs.REGISTRY[name], microbatches=4))
         assert port.ep_volume_fraction() > 0
         assert port.ep_volume_fraction() == ref.ep_volume_fraction()
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "mixtral-8x22b"])
+def test_ep_a2a_task_tags_match_reference(name):
+    """tests/test_moe_dag.py:66 in the port: each EP all-to-all task's tag
+    names its stage, whose volume it carries, as the reference's does."""
+    archs = {**port_configs.PAPER_WORKLOADS, **port_configs.REGISTRY}
+    ref_archs = {**jax_configs.PAPER_WORKLOADS, **jax_configs.REGISTRY}
+    job = port_configs.make_job(archs[name], microbatches=4)
+    port = port_schedule.build_comm_dag(job)
+    ref = jax_schedule.build_comm_dag(
+        jax_configs.make_job(ref_archs[name], microbatches=4))
+    assert [t.tag for t in port.tasks] == [t.tag for t in ref.tasks]
+    ep = [t for t in port.real_tasks() if t.kind.startswith("ep_a2a")]
+    assert ep
+    for t in ep:
+        assert t.volume == pytest.approx(job.ep_a2a_stage_volume(t.tag[2]))
 
 
 def test_ep1_workloads_have_no_ep_tasks():

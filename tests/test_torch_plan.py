@@ -139,7 +139,13 @@ assert len(names) >= 20, names
 new = {"repro_torch.launch.mesh", "repro_torch.distributed.sharding",
        "repro_torch.distributed.compression",
        "repro_torch.launch.costanalysis", "repro_torch.launch.dryrun",
-       "repro_torch.core._ga_legacy"}
+       "repro_torch.core._ga_legacy", "repro_torch.analysis",
+       "repro_torch.analysis.__main__", "repro_torch.analysis.engine",
+       "repro_torch.analysis.report", "repro_torch.analysis.baseline",
+       "repro_torch.analysis.check_baseline", "repro_torch.analysis.rules"}
+new |= {f"repro_torch.analysis.rules.{r}" for r in (
+    "fields", "mutation", "solver", "facade", "cachekey", "dtype", "jit",
+    "fallback", "precision")}
 assert new <= set(names), sorted(new - set(names))
 assert not bad, bad
 print("ok", len(names))
@@ -147,6 +153,40 @@ print("ok", len(names))
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_port_sentinel_imports_only_the_standard_library():
+    """`repro_torch.analysis` and every module of it, loaded in a fresh
+    interpreter without the parent package's own import of torch, and run
+    over a fixture, import nothing outside the standard library but
+    themselves (no torch, no jax, nothing of the JAX package)."""
+    code = f"""
+import importlib, pkgutil, sys, types
+pkg = types.ModuleType("repro_torch")
+pkg.__path__ = [{str(REPO / "src" / "repro_torch")!r}]
+sys.modules["repro_torch"] = pkg
+before = set(sys.modules)
+import repro_torch.analysis as sentinel
+names = [m.name for m in pkgutil.walk_packages(sentinel.__path__,
+                                               "repro_torch.analysis.")]
+for name in names:
+    importlib.import_module(name)
+found = sentinel.analyze_paths(
+    [{str(REPO / "tests" / "sentinel_fixtures" / "torch")!r}],
+    root={str(REPO)!r})
+assert len({{f.rule for f in found}}) == 11, found
+new = sorted(set(sys.modules) - before)
+bad = [m for m in new if m.split(".")[0] not in sys.stdlib_module_names
+       and not (m == "repro_torch.analysis"
+                or m.startswith("repro_torch.analysis."))]
+assert not bad, bad
+assert len(names) >= 14, names
+print("ok", len(names))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
 

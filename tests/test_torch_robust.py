@@ -365,6 +365,7 @@ def test_plan_ensemble(seq_mix):
                            des_options=CPU))
     assert isinstance(res, EnsemblePlanResult)
     assert res.method == "delta-robust" and res.objective == "max-regret"
+    assert res.member_names == ["s4k", "s16k"]
     refs = [delta_fast(d, OPTS).makespan for d in port]
     np.testing.assert_array_equal(res.refs, refs)
     np.testing.assert_array_equal(res.makespans,
