@@ -1224,6 +1224,7 @@ def phase_des(dag, loop_syncs: int) -> None:
     """The DES at full width on the fused, per-round and plain paths."""
     import numpy as np
     import torch
+    from repro_torch import obs
     from repro_torch.core.baselines import BASELINES
     from repro_torch.core.des import DESProblem, simulate
     from repro_torch.core.des_torch import DESOptions, TorchDES
@@ -1251,7 +1252,8 @@ def phase_des(dag, loop_syncs: int) -> None:
             _reset_counts()         # this path's counts start at 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ms, feas, _, _ = des.simulate(x)
+            with obs.enabled():     # the rounds count while tracing is on
+                ms, feas, _, _ = des.simulate(x)
             t_dev = time.perf_counter() - t0
             c = _counts()
             rel = abs(ms - want.makespan) / want.makespan
@@ -1293,7 +1295,8 @@ def phase_des(dag, loop_syncs: int) -> None:
         _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ms_b, feas_b = batch()
+        with obs.enabled():         # the rounds count while tracing is on
+            ms_b, feas_b = batch()
         wall = time.perf_counter() - t0
         c = _counts()
         _check_path(name, c)
@@ -1308,7 +1311,10 @@ def phase_des(dag, loop_syncs: int) -> None:
             busy = _busy_s(prof)
         else:
             busy = _device_only_busy_s(batch)
+        counter = obs.REGISTRY.counter("des_host_syncs_total")
+        before = counter.value()
         syncs = _host_syncs(batch)
+        counted = counter.value() - before
         trips = c["trips"]
         log(f"[des] turn {turn} {name}: 48-genome batch {wall:.4f} s wall "
             f"({wall * 1e3 / c['trips']:.4f} ms per trip); "
@@ -1316,7 +1322,8 @@ def phase_des(dag, loop_syncs: int) -> None:
             + (f"{1.0 - busy / wall:.4f}" if busy else "not measured")
             + f"; {syncs} host syncs in {trips:.0f} trips, "
             f"{syncs / trips:.3f} per trip (sanctioned sync sites in the "
-            f"event loop, [sentinel]: {loop_syncs}); {c['rounds']:.0f} rounds, "
+            f"event loop, [sentinel]: {loop_syncs}; des_host_syncs_total "
+            f"{counted:.0f} in the same call); {c['rounds']:.0f} rounds, "
             f"{c['maxmin']} fill_maxmin, {c['launches']} fill_round launches")
         if first_fused:
             _trip_ops(prof, trips, prof_wall)

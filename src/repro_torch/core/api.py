@@ -51,6 +51,7 @@ from repro_torch.core.ga import (ROBUST_OBJECTIVES, GAOptions, GAResult,
                                  delta_failsafe, delta_fast, delta_robust)
 from repro_torch.core.milp import (MILPOptions, MILPResult, solve_delta_milp,
                                    solve_resilient, solve_robust_milp)
+from repro_torch.obs import span
 
 INF = float("inf")
 
@@ -58,6 +59,8 @@ METHODS = ("prop-alloc", "sqrt-alloc", "iter-halve",
            "delta-fast", "delta-topo", "delta-joint",
            "delta-joint-hotstart", "delta-robust")
 ROBUST_METHODS = ("delta-robust", "delta-robust-milp")
+# the method a kind that takes one runs when the request names none
+_DEFAULT_METHODS = {"dag": "delta-fast", "ensemble": "delta-robust"}
 
 @dataclass
 class PlanResult:
@@ -74,7 +77,8 @@ class PlanResult:
 
 def _ideal(problem: DESProblem) -> DESResult:
     P = problem.dag.cluster.num_pods
-    return simulate(problem, np.zeros((P, P)), ideal=True)
+    with span("api.ideal"):
+        return simulate(problem, np.zeros((P, P)), ideal=True)
 
 
 def milp_critical_delta(dag: CommDAG, res: MILPResult) -> float:
@@ -200,7 +204,9 @@ def _plan_dag(dag: CommDAG, method: str = "delta-fast",
 
 def _from_des(dag: CommDAG, problem: DESProblem, method: str, x: np.ndarray,
               elapsed: float, ideal: DESResult) -> PlanResult:
-    res = simulate(problem, x)
+    with span("api.certify") as sp:
+        res = simulate(problem, x)
+        sp.set(feasible=bool(res.feasible))
     if not res.feasible:
         return PlanResult(method=method, x=x, makespan=INF, comm_time=INF,
                           nct=INF, total_ports=int(x.sum()), elapsed=elapsed,
@@ -521,21 +527,30 @@ def plan(request: PlanRequest):
     `EnsemblePlanResult` (ensemble) or `FleetPlanResult` (fleet) -- the
     same objects, bit-identical, that the legacy facades produce.  A MILP
     method's or the resilient kind's `details["schedule"]` is the
-    `MILPResult` it planned from, which `milp.validate_solution` checks."""
+    `MILPResult` it planned from, which `milp.validate_solution` checks.
+    Each call is one `api.plan` span, the root of the plan's spans."""
     kind = request.kind
     ga = request.ga_options
     if request.des_options is not None:
         ga = dataclasses.replace(ga or GAOptions(),
                                  des_options=request.des_options)
     _settle_device(ga)
+    method = (request.method or _DEFAULT_METHODS[kind]
+              if kind in _DEFAULT_METHODS else None)
+    with span("api.plan", kind=kind, method=method):
+        return _dispatch(request, kind, method, ga)
+
+
+def _dispatch(request: PlanRequest, kind: str, method: str | None,
+              ga: GAOptions | None):
+    """`plan`'s body: the request's planner by `kind`."""
     if kind == "dag":
-        return _plan_dag(request.dag, method=request.method or "delta-fast",
+        return _plan_dag(request.dag, method=method,
                          port_min=request.port_min, ga_options=ga,
                          milp_options=request.milp_options,
                          ideal_result=request.ideal_result)
     if kind == "ensemble":
-        return _plan_ensemble(request.ensemble,
-                              method=request.method or "delta-robust",
+        return _plan_ensemble(request.ensemble, method=method,
                               objective=request.objective or "max-regret",
                               refs=request.refs, ga_options=ga,
                               milp_options=request.milp_options)

@@ -24,6 +24,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core.dag import VIRTUAL, CommDAG
+from repro_torch.obs.tracing import span
 
 INF = float("inf")
 
@@ -33,6 +34,10 @@ class DESProblem:
     """Precomputed arrays for repeated simulation of one CommDAG."""
 
     def __init__(self, dag: CommDAG):
+        with span("des.problem", tasks=dag.num_tasks, deps=len(dag.deps)):
+            self._build(dag)
+
+    def _build(self, dag: CommDAG) -> None:
         self.dag = dag
         n = dag.num_tasks
         self.n = n
@@ -173,6 +178,12 @@ def simulate(problem: DESProblem, x: np.ndarray, ideal: bool = False,
              record_rates: bool = False, max_events: int | None = None
              ) -> DESResult:
     """Run the DES for topology matrix x (symmetric, circuits per pair)."""
+    with span("des.host", ideal=ideal):
+        return _simulate(problem, x, ideal, record_rates, max_events)
+
+
+def _simulate(problem: DESProblem, x: np.ndarray, ideal: bool,
+              record_rates: bool, max_events: int | None) -> DESResult:
     n = problem.n
     caps = problem.link_caps(np.asarray(x), ideal=ideal)
     rem = problem.volume.copy()

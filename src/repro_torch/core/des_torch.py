@@ -35,6 +35,15 @@ scatters read each lane's own member's arrays.
 On 'cuda' the host reads one flag per event trip and none per filling
 round; the host-driven backends read one flag per round as well.  A trip
 without host syncs (a CUDA graph or a persistent kernel) is later work.
+Nothing is counted inside a trip: each simulation counts its trips and its
+host reads of device values (the exit tests and the rounds read; not the
+host-driven backends' round flags) in local variables and adds them to
+`des_event_trips_total` and `des_host_syncs_total` once at its end; the
+entry points' result copies add to `des_host_syncs_total` where they are
+made (`_to_host`).  `des_fill_rounds_total` is kept on
+the device and read once per simulation, and only while the tracer is on
+(decided at the simulation's start), so an untraced trip launches nothing
+for it.
 
 Problems are padded to quantized (tasks, deps, incidence, links) buckets
 with ghost semantics (`_problem_fields`), so padded results equal the
@@ -62,7 +71,7 @@ from repro_torch.core.des import DESProblem
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (csr_con_id, csr_warp_sums,
                                      progressive_filling)
-from repro_torch.obs import get_counter, get_gauge, get_logger, span
+from repro_torch.obs import TRACER, get_counter, get_gauge, get_logger, span
 
 __all__ = ["DESArrays", "DESOptions", "EnsembleTorchDES", "PadSpec",
            "TorchDES", "default_max_events", "des_cache_clear",
@@ -85,9 +94,18 @@ TEPS = 1e-5
 _TRIPS = get_counter("des_event_trips_total",
                      "torch DES event-loop trips (batched over lanes)")
 _ROUNDS = get_counter("des_fill_rounds_total",
-                      "torch DES max-min filling rounds (batched over lanes)")
+                      "torch DES max-min filling rounds (batched over lanes; "
+                      "counted while tracing is on)")
+_SYNCS = get_counter("des_host_syncs_total",
+                     "torch DES event-loop host reads of device values")
 
 _log = get_logger("repro_torch.des_torch")
+
+
+def _to_host(*ts: torch.Tensor) -> list[np.ndarray]:
+    """Copy device results to the host, each copy one counted host sync."""
+    _SYNCS.inc(len(ts))
+    return [t.cpu().numpy() for t in ts]
 
 # engine-cache accounting lives in the shared metrics registry so callers
 # (e.g. a FleetPlanner) can read scoped deltas instead of process-wide
@@ -426,14 +444,14 @@ def des_cache_clear() -> None:
 
 
 def _count_bucket(key: BucketKey, pad: PadSpec,
-                  warn_on_miss: bool = False) -> None:
+                  warn_on_miss: bool = False) -> bool:
     """Count one construction in its bucket, least recently used evicted
-    first beyond CACHE_SIZE buckets."""
+    first beyond CACHE_SIZE buckets; True where the bucket was there."""
     k = (key, pad.d, pad.e)
     if k in _ENGINE_CACHE:
         _HITS.inc()
         _ENGINE_CACHE.move_to_end(k)
-        return
+        return True
     # every miss counts whether or not the caller asked for the warning,
     # so the counter is the one authoritative churn signal
     _MISSES.inc()
@@ -447,6 +465,7 @@ def _count_bucket(key: BucketKey, pad: PadSpec,
         _ENGINE_CACHE.popitem(last=False)
         _EVICTIONS.inc()
     _ENTRIES.set(len(_ENGINE_CACHE))
+    return False
 
 
 def plane_state_genomes(lane_genomes: np.ndarray) -> np.ndarray:
@@ -491,41 +510,44 @@ class _LaneDES:
                members: int) -> None:
         """`members` is the bucket key's: 0 for one problem, M for an
         ensemble, as the reference's cache keys them."""
-        self.options = options or DESOptions()
-        self.device = self.options.resolve_device()
-        self.backend = self.options.resolve_backend(self.device)
-        if arrays is None:
-            pad = member_pad(problems)
-            if self.options.bucket:
-                pad = pad.bucketed()
-            arrays = stack_problems(problems, pad, device=self.device)
-        elif arrays.volume.device != self.device:
-            raise ValueError(f"arrays live on {arrays.volume.device}, the "
-                             f"engine on {self.device}")
-        self.arrays = a = arrays
-        self.M = a.volume.shape[0]
-        self.pad = PadSpec(n=a.n, d=a.dep_pre.shape[1], e=a.con_task.shape[1],
-                           links=a.num_link_cons, cons=a.num_cons)
-        self.max_events = int(max_events or default_max_events(a.n))
-        self.P = problems[0].dag.cluster.num_pods
-        _count_bucket(
-            BucketKey(n=a.n, num_cons=a.num_cons,
-                      num_link_cons=a.num_link_cons, P=self.P,
-                      max_events=self.max_events, backend=self.backend,
-                      device=str(self.device), members=members),
-            self.pad, self.options.warn_on_miss)
-        # the rate step, with the incidence it reads built once per
-        # engine and shared by every round of every trip of every lane
-        self._rates = _rate_step(a, self.backend)
-        # x-independent initial state: virtual task 0 and the padding
-        # ghosts are born done at t=0; deps from task 0 are met
-        self._started0 = ~a.task_valid
-        self._started0[:, 0] = True
-        from_virtual = torch.zeros((self.M, a.n), dtype=torch.int32,
-                                   device=self.device)
-        from_virtual.scatter_add_(1, a.dep_succ, (a.dep_pre == 0).to(
-            torch.int32))
-        self._missing0 = a.indegree - from_virtual
+        with span("des.build", members=members) as sp:
+            self.options = options or DESOptions()
+            self.device = self.options.resolve_device()
+            self.backend = self.options.resolve_backend(self.device)
+            if arrays is None:
+                pad = member_pad(problems)
+                if self.options.bucket:
+                    pad = pad.bucketed()
+                arrays = stack_problems(problems, pad, device=self.device)
+            elif arrays.volume.device != self.device:
+                raise ValueError(f"arrays live on {arrays.volume.device}, "
+                                 f"the engine on {self.device}")
+            self.arrays = a = arrays
+            self.M = a.volume.shape[0]
+            self.pad = PadSpec(n=a.n, d=a.dep_pre.shape[1],
+                               e=a.con_task.shape[1], links=a.num_link_cons,
+                               cons=a.num_cons)
+            self.max_events = int(max_events or default_max_events(a.n))
+            self.P = problems[0].dag.cluster.num_pods
+            hit = _count_bucket(
+                BucketKey(n=a.n, num_cons=a.num_cons,
+                          num_link_cons=a.num_link_cons, P=self.P,
+                          max_events=self.max_events, backend=self.backend,
+                          device=str(self.device), members=members),
+                self.pad, self.options.warn_on_miss)
+            sp.set(hit=hit)
+            # the rate step, with the incidence it reads built once per
+            # engine and shared by every round of every trip of every lane
+            self._rates = _rate_step(a, self.backend)
+            # x-independent initial state: virtual task 0 and the padding
+            # ghosts are born done at t=0; deps from task 0 are met
+            self._started0 = ~a.task_valid
+            self._started0[:, 0] = True
+            from_virtual = torch.zeros((self.M, a.n), dtype=torch.int32,
+                                       device=self.device)
+            from_virtual.scatter_add_(1, a.dep_succ, (a.dep_pre == 0).to(
+                torch.int32))
+            self._missing0 = a.indegree - from_virtual
 
     # ------------------------------------------------------------ event loop
     def _retire_starts(self, t_now, started, finish, missing, dep_pre,
@@ -544,7 +566,8 @@ class _LaneDES:
     def _simulate(self, xs: torch.Tensor, masks: torch.Tensor,
                   ideal: bool = False):
         """(G, P, P) topologies under (M, P, P) link-availability masks ->
-        (makespan, feasible, start, finish), each with leading (G, M)."""
+        (makespan, feasible, start, finish), each with leading (G, M), on
+        the device; the caller copies what it returns with `_to_host`."""
         a, m = self.arrays, self.M
         g, n, dev, p = xs.shape[0], a.n, self.device, self.P
         f32 = torch.float32
@@ -571,18 +594,22 @@ class _LaneDES:
             t, started, finish, missing, dep_pre, dep_succ)
         start = torch.where(newly, ready, start)
         feasible = torch.ones((g, m), dtype=torch.bool, device=dev)
-        rounds = torch.zeros((), dtype=torch.int64, device=dev)
+        rounds = torch.zeros((), dtype=torch.int64, device=dev) \
+            if TRACER.is_enabled and _ROUNDS.enabled else None
+        trips = syncs = 0       # counted here, added once at the end
 
         for _ in range(self.max_events):
             run = torch.isfinite(t) & feasible
+            syncs += 1
             if not bool(run.any()):  # sentinel: ignore[RPR006] one sync per trip: the exit test
                 break
-            _TRIPS.inc()
+            trips += 1
             active = started & ~done
             rates, lane_rounds = self._rates(
                 (active & run[..., None]).view(g * m, n), lane_caps)
             rates = rates.view(g, m, n)
-            rounds += lane_rounds.amax()
+            if rounds is not None:
+                rounds += lane_rounds.amax()
             feas_new = feasible & torch.where(active, rates > 0, True).all(-1)
             # rem / max(rates, 1e-300) in the reference: the clamp is 0 in
             # float32 and where() drops the rate-0 tasks
@@ -619,8 +646,11 @@ class _LaneDES:
             finish = torch.where(r, finish_new, finish)
             missing = torch.where(r, missing_new, missing)
 
-        if _ROUNDS.enabled:
+        _TRIPS.inc(trips)
+        if rounds is not None:
             _ROUNDS.inc(int(rounds))          # one host read per simulation
+            syncs += 1
+        _SYNCS.inc(syncs)
         feasible = feasible & done.all(-1)
         last = torch.where(torch.isfinite(finish), finish, -INF).amax(-1)
         makespan = torch.where(feasible, last, INF)
@@ -682,9 +712,9 @@ class TorchDES(_LaneDES):
             ms, feas, start, finish = self._simulate(xs, self._masks(mask),
                                                      ideal)
             n = self.problem.n
-            return (float(ms[0, 0]), bool(feas[0, 0]),
-                    start[0, 0, :n].cpu().numpy(),
-                    finish[0, 0, :n].cpu().numpy())
+            ms, feas, start, finish = _to_host(
+                ms[0, 0], feas[0, 0], start[0, 0, :n], finish[0, 0, :n])
+            return float(ms), bool(feas), start, finish
 
     def batch_makespan(self, xs, mask=None) -> tuple[np.ndarray, np.ndarray]:
         """Makespans + feasibility for a (pop, P, P) batch of topologies."""
@@ -692,7 +722,7 @@ class TorchDES(_LaneDES):
         with span("des.simulate", entry="batch_x", n=self.pad.n,
                   pop=int(xs.shape[0])):
             ms, feas, _, _ = self._simulate(xs, self._masks(mask))
-            return ms[:, 0].cpu().numpy(), feas[:, 0].cpu().numpy()
+            return tuple(_to_host(ms[:, 0], feas[:, 0]))
 
     def batch_genome_makespan(self, genomes, edge_u, edge_v, mask=None
                               ) -> tuple[np.ndarray, np.ndarray]:
@@ -704,7 +734,7 @@ class TorchDES(_LaneDES):
                   pop=int(np.shape(genomes)[0])):
             xs = self._genome_topologies(genomes, edge_u, edge_v)
             ms, feas, _, _ = self._simulate(xs, self._masks(mask))
-            return ms[:, 0].cpu().numpy(), feas[:, 0].cpu().numpy()
+            return tuple(_to_host(ms[:, 0], feas[:, 0]))
 
 
 class EnsembleTorchDES(_LaneDES):
@@ -740,7 +770,7 @@ class EnsembleTorchDES(_LaneDES):
                   pop=int(np.shape(genomes)[0]), members=self.M):
             xs = self._genome_topologies(genomes, edge_u, edge_v)
             ms, feas, _, _ = self._simulate(xs, self._masks(masks))
-            return ms.cpu().numpy(), feas.cpu().numpy()
+            return tuple(_to_host(ms, feas))
 
     def makespans(self, x, masks=None) -> tuple[np.ndarray, np.ndarray]:
         """Per-member (makespan, feasible) for one (P, P) topology."""
@@ -748,4 +778,4 @@ class EnsembleTorchDES(_LaneDES):
                   members=self.M):
             xs = topology_from_numpy(x, self.device)[None]
             ms, feas, _, _ = self._simulate(xs, self._masks(masks))
-            return ms[0].cpu().numpy(), feas[0].cpu().numpy()
+            return tuple(_to_host(ms[0], feas[0]))

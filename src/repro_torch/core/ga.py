@@ -443,18 +443,23 @@ def _exact_rerank(fit: _CachedFitness, best_g: np.ndarray,
     """The winner among the `top` best distinct cached genomes, re-ranked
     by `score_of` (the exact numpy DES; the batched torch fitness runs in
     float32, with ~1e-5 ranking noise) plus the port penalty; `best_g`
-    when none of them scores finite."""
-    ranked = sorted(fit.cache.items(), key=lambda kv: kv[1])[:top]
-    best_key, best_score = best_g.tobytes(), INF
-    for key, fval in ranked:
-        if not np.isfinite(fval):
-            continue
-        g = np.frombuffer(key, dtype=np.int64)
-        score = score_of(g)
-        if np.isfinite(score):
-            score += port_weight * float(g.sum())
-        if score < best_score:
-            best_score, best_key = score, key
+    when none of them scores finite.  One `ga.rerank` span, whichever GA
+    flavour calls it."""
+    with span("ga.rerank", top=top) as sp:
+        ranked = sorted(fit.cache.items(), key=lambda kv: kv[1])[:top]
+        best_key, best_score = best_g.tobytes(), INF
+        scored = 0
+        for key, fval in ranked:
+            if not np.isfinite(fval):
+                continue
+            g = np.frombuffer(key, dtype=np.int64)
+            score = score_of(g)
+            scored += 1
+            if np.isfinite(score):
+                score += port_weight * float(g.sum())
+            if score < best_score:
+                best_score, best_key = score, key
+        sp.set(scored=scored)
     return np.frombuffer(best_key, dtype=np.int64)
 
 

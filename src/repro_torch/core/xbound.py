@@ -27,6 +27,7 @@ from repro_torch.core.dag import CommDAG
 from repro_torch.core.pruning import cal_task_time_windows, estimate_t_up
 from repro_torch.core.des import DESProblem
 from repro_torch.kernels import ops
+from repro_torch.obs import span
 
 
 # ---------------------------------------------------------------- closures
@@ -149,6 +150,15 @@ def x_upper_bound(dag: CommDAG, t_up: float | None = None,
                   device: str | torch.device | None = None) -> np.ndarray:
     """Upper-bound matrix X̄ for the circuits between every pod pair;
     ``device`` is where the 'kernel' closure runs (see `reachability`)."""
+    with span("xbound.upper_bound", tasks=dag.num_tasks,
+              closure=closure_backend):
+        return _x_upper_bound(dag, t_up, closure_backend, exact_limit,
+                              device)
+
+
+def _x_upper_bound(dag: CommDAG, t_up: float | None, closure_backend: str,
+                   exact_limit: int, device: str | torch.device | None
+                   ) -> np.ndarray:
     P = dag.cluster.num_pods
     xbar = np.zeros((P, P), dtype=np.int64)
     if t_up is None:

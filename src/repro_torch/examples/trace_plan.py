@@ -9,9 +9,16 @@ Produces, under --out (default experiments/trace):
                          https://ui.perfetto.dev (one track per inter-pod
                          link, critical-path tasks in red, per-link
                          utilization counter tracks)
-  spans_gpt-7b.json      Chrome-trace JSON of the planner's own spans
-                         (ga.evolve > ga.generation > ga.fitness_batch >
-                         des.simulate)
+  spans_gpt-7b.json      Chrome-trace JSON of the planner's own spans,
+                         each with its id and its parent's: Alg. 2
+                         (xbound.upper_bound > des.problem, des.host: the
+                         t_up estimate), the GA's DES problem and engine
+                         (des.problem, des.build), the search (ga.evolve >
+                         ga.generation > ga.fitness_batch > des.simulate),
+                         the exact re-rank (ga.rerank > des.host), the
+                         winner's numpy DES run (des.host), then the
+                         chosen plan's des.problem and des.host here and
+                         the timeline's des.problem
 
 and prints the critical-path / per-task-slack report plus the span
 summary.  Exits non-zero if the emitted trace fails schema validation or

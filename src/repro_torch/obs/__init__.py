@@ -3,7 +3,7 @@ journal and logging for the port.
 
 Copies of `repro.obs`'s modules (the port imports nothing of `repro`):
 
-  metrics   counters/gauges/histograms with labels, JSON snapshot +
+  metrics   counters/gauges with labels, JSON snapshot +
             Prometheus text exposition, planner-scoped deltas
   tracing   nestable spans over the hot seams, Chrome-trace export,
             near-zero cost when disabled (the default)
@@ -20,9 +20,9 @@ Copies of `repro.obs`'s modules (the port imports nothing of `repro`):
 from repro_torch.obs.journal import (FleetJournal, rebuild_event,
                                      serialize_event)
 from repro_torch.obs.logs import get_logger, setup_logging
-from repro_torch.obs.metrics import (REGISTRY, Counter, Gauge, Histogram,
+from repro_torch.obs.metrics import (REGISTRY, Counter, Gauge,
                                      MetricsRegistry, RegistryScope,
-                                     get_counter, get_gauge, get_histogram)
+                                     get_counter, get_gauge)
 from repro_torch.obs.timeline import (plane_rewire_timeline,
                                       schedule_timeline, slack_report,
                                       task_slack, validate_trace,
@@ -30,8 +30,8 @@ from repro_torch.obs.timeline import (plane_rewire_timeline,
 from repro_torch.obs.tracing import TRACER, SpanRecord, Tracer, enabled, span
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "RegistryScope",
-    "REGISTRY", "get_counter", "get_gauge", "get_histogram",
+    "Counter", "Gauge", "MetricsRegistry", "RegistryScope",
+    "REGISTRY", "get_counter", "get_gauge",
     "Tracer", "TRACER", "SpanRecord", "span", "enabled",
     "plane_rewire_timeline", "schedule_timeline", "slack_report",
     "task_slack", "validate_trace", "write_trace",

@@ -1,4 +1,4 @@
-"""Lightweight metrics registry: counters / gauges / histograms with labels.
+"""Lightweight metrics registry: counters and gauges with labels.
 
 The fleet control plane (monitor -> decide -> apply) needs exported,
 *scopable* measurements instead of ad-hoc process-wide dicts: two
@@ -27,13 +27,8 @@ import json
 import os
 import threading
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "RegistryScope", "REGISTRY", "get_counter", "get_gauge",
-           "get_histogram"]
-
-# seconds-scale latency buckets: DES calls are ~1e-4..1e0, GA/MILP solves
-# 1e-1..1e3 -- a shared log-spaced ladder covers both
-DEFAULT_BUCKETS = (1e-4, 1e-3, 1e-2, 0.1, 0.5, 1.0, 5.0, 30.0, 120.0, 600.0)
+__all__ = ["Counter", "Gauge", "MetricsRegistry", "RegistryScope",
+           "REGISTRY", "get_counter", "get_gauge"]
 
 _LabelKey = tuple[tuple[str, str], ...]
 
@@ -128,73 +123,6 @@ class Gauge(_Metric):
         self.inc(-amount, **labels)
 
 
-class Histogram(_Metric):
-    """Cumulative-bucket histogram (Prometheus semantics: each ``le``
-    bucket counts observations <= its bound, plus ``+Inf``/sum/count)."""
-
-    kind = "histogram"
-
-    def __init__(self, name: str, help: str, registry: "MetricsRegistry",
-                 buckets: tuple[float, ...] = DEFAULT_BUCKETS):
-        super().__init__(name, help, registry)
-        self.buckets = tuple(sorted(float(b) for b in buckets))
-        # per label key: [bucket counts..., +Inf count, sum]
-        self._obs: dict[_LabelKey, list[float]] = {}
-
-    def observe(self, value: float, **labels) -> None:
-        if not self.enabled:
-            return
-        key = _label_key(labels)
-        with self._lock:
-            row = self._obs.get(key)
-            if row is None:
-                row = self._obs[key] = [0.0] * (len(self.buckets) + 2)
-            for i, b in enumerate(self.buckets):
-                if value <= b:
-                    row[i] += 1.0
-            row[-2] += 1.0          # +Inf
-            row[-1] += value        # sum
-
-    def value(self, **labels) -> float:
-        """Observation count for the label set (the scalar view)."""
-        row = self._obs.get(_label_key(labels))
-        return row[-2] if row else 0.0
-
-    def sum(self, **labels) -> float:
-        row = self._obs.get(_label_key(labels))
-        return row[-1] if row else 0.0
-
-    def series(self) -> dict[_LabelKey, float]:
-        with self._lock:
-            return {key: row[-2] for key, row in self._obs.items()}
-
-    def reset(self) -> None:
-        with self._lock:
-            self._obs.clear()
-
-    def _lines(self) -> list[str]:
-        with self._lock:
-            items = sorted((k, list(v)) for k, v in self._obs.items())
-        out = []
-        for key, row in items:
-            for i, b in enumerate(self.buckets):
-                lk = _label_key(dict(key, le=_format(b)))
-                out.append(f"{self.name}_bucket{_render_labels(lk)} "
-                           f"{_format(row[i])}")
-            lk = _label_key(dict(key, le="+Inf"))
-            out.append(f"{self.name}_bucket{_render_labels(lk)} "
-                       f"{_format(row[-2])}")
-            out.append(f"{self.name}_sum{_render_labels(key)} "
-                       f"{_format(row[-1])}")
-            out.append(f"{self.name}_count{_render_labels(key)} "
-                       f"{_format(row[-2])}")
-        return out
-
-    def snapshot_obs(self) -> dict[_LabelKey, list[float]]:
-        with self._lock:
-            return {k: list(v) for k, v in self._obs.items()}
-
-
 class MetricsRegistry:
     """Named metrics + consistent snapshot / exposition / scoping."""
 
@@ -206,11 +134,11 @@ class MetricsRegistry:
         self._metrics: dict[str, _Metric] = {}
 
     # ------------------------------------------------------------- factories
-    def _get(self, cls, name: str, help: str, **kw) -> _Metric:
+    def _get(self, cls, name: str, help: str) -> _Metric:
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
-                m = cls(name, help, self, **kw)
+                m = cls(name, help, self)
                 self._metrics[name] = m
             elif not isinstance(m, cls):
                 raise TypeError(
@@ -222,10 +150,6 @@ class MetricsRegistry:
 
     def gauge(self, name: str, help: str = "") -> Gauge:
         return self._get(Gauge, name, help)
-
-    def histogram(self, name: str, help: str = "",
-                  buckets: tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
-        return self._get(Histogram, name, help, buckets=buckets)
 
     # ---------------------------------------------------------------- export
     def snapshot(self) -> dict:
@@ -278,8 +202,8 @@ class MetricsRegistry:
 class RegistryScope:
     """Value snapshot of a registry; `delta()` returns per-metric change.
 
-    Only scalar series are diffed (counter/gauge values, histogram counts);
-    new label combinations appearing after the snapshot count from zero.
+    Only scalar series are diffed (counter and gauge values); new label
+    combinations appearing after the snapshot count from zero.
     """
 
     def __init__(self, registry: MetricsRegistry):
@@ -320,7 +244,3 @@ def get_counter(name: str, help: str = "") -> Counter:
 def get_gauge(name: str, help: str = "") -> Gauge:
     return REGISTRY.gauge(name, help)
 
-
-def get_histogram(name: str, help: str = "",
-                  buckets: tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
-    return REGISTRY.histogram(name, help, buckets)

@@ -25,8 +25,8 @@ import json
 
 import numpy as np
 
+from repro_torch.core import des
 from repro_torch.core.dag import VIRTUAL, CommDAG
-from repro_torch.core.des import DESProblem, DESResult, simulate
 
 __all__ = ["interval_rate_matrices", "plane_rewire_timeline",
            "schedule_timeline", "slack_report", "task_slack",
@@ -43,7 +43,7 @@ _COLOR_BY_KIND = {"pp_fwd": "thread_state_running",
 _EP_COLOR = "generic_work"
 
 
-def task_slack(dag: CommDAG, result: DESResult) -> np.ndarray:
+def task_slack(dag: CommDAG, result: des.DESResult) -> np.ndarray:
     """Backward-pass temporal slack per task, on the *realized* schedule.
 
     With realized durations ``d_m = finish_m - start_m`` fixed, the latest
@@ -77,7 +77,7 @@ def task_slack(dag: CommDAG, result: DESResult) -> np.ndarray:
     return slack
 
 
-def slack_report(dag: CommDAG, result: DESResult,
+def slack_report(dag: CommDAG, result: des.DESResult,
                  slack_tol: float = 1e-6) -> dict:
     """Critical-path + per-task slack summary of one simulated plan."""
     if not result.feasible:
@@ -119,7 +119,7 @@ def _link_name(pair: tuple[int, int]) -> str:
     return f"link {pair[0]}->{pair[1]}"
 
 
-def interval_rate_matrices(problem: DESProblem, result: DESResult
+def interval_rate_matrices(problem: des.DESProblem, result: des.DESResult
                            ) -> list[tuple[float, float, np.ndarray]]:
     """Per DES interval, the aggregate (P, P) task-rate matrix (bytes/s).
 
@@ -144,7 +144,7 @@ def interval_rate_matrices(problem: DESProblem, result: DESResult
 
 
 def schedule_timeline(dag: CommDAG, x: np.ndarray,
-                      result: DESResult | None = None,
+                      result: des.DESResult | None = None,
                       time_scale: float = 1e6) -> dict:
     """Chrome trace-event JSON of one plan's simulated schedule.
 
@@ -155,9 +155,9 @@ def schedule_timeline(dag: CommDAG, x: np.ndarray,
     a counter track with its per-interval utilization.  ``time_scale``
     maps seconds to trace µs (default 1:1 -- trace µs == schedule µs).
     """
-    problem = DESProblem(dag)
+    problem = des.DESProblem(dag)
     if result is None:
-        result = simulate(problem, np.asarray(x), record_rates=True)
+        result = des.simulate(problem, np.asarray(x), record_rates=True)
     if not result.feasible:
         raise ValueError("cannot export a timeline for an infeasible plan")
     rep = slack_report(dag, result)

@@ -5,13 +5,21 @@ MILP solve phase, a fleet admission decision.  Spans nest (a per-thread
 stack tracks the active parent), survive exceptions (the duration is
 recorded and the stack popped either way, with the exception type attached
 to the span), and use monotonic clocks, so a span summary is a faithful
-"where did the wall clock go" decomposition.
+"where did the wall clock go" decomposition.  Each span has an integer
+`id`, unique in its tracer, and names its parent by `parent_id` as well as
+by name, so one plan's spans form one tree under its `api.plan` span even
+where one name (``des.host``) sits under several parents.
+
+Clock: every span starts and ends on `time.perf_counter`, in seconds.  A
+device trace whose marker kernels are stamped on the same clock (the
+benchmark's `bench/harness/trace.py`) puts the card's idle gaps and the
+program's spans on one time axis.
 
 Cost model: tracing is DISABLED by default.  A disabled `span()` returns a
 shared no-op context manager -- one attribute check, no allocation -- so
 instrumenting per-generation / per-batch paths costs well under the 2%
-budget of even the smoke-sized GA runs (see tests/test_obs.py, which bounds
-the per-call overhead directly).  Enable via `tracer.enable()`,
+budget of even the smoke-sized GA runs (tests/test_torch_obs.py bounds the
+per-call overhead directly).  Enable via `tracer.enable()`,
 ``$REPRO_TRACE=1``, or the `enabled(...)` context manager.
 
 Exports:
@@ -27,6 +35,7 @@ modules; `span(name, **attrs)` is the module-level shorthand bound to it.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import threading
 import time
@@ -35,14 +44,17 @@ __all__ = ["SpanRecord", "Tracer", "TRACER", "span", "enabled"]
 
 
 class SpanRecord:
-    """One closed span: name, [t0, t0+dur) on the monotonic clock, parent
-    span name (or None at the root), nesting depth, originating thread and
-    free-form attrs (plus ``error`` when the body raised)."""
+    """One closed span: name, [t0, t0+dur) on `time.perf_counter`, parent
+    span name (or None at the root), nesting depth, originating thread,
+    free-form attrs (plus ``error`` when the body raised), its own `id`
+    and its parent's (`parent_id`, None at the root)."""
 
-    __slots__ = ("name", "t0", "dur", "parent", "depth", "thread", "attrs")
+    __slots__ = ("name", "t0", "dur", "parent", "depth", "thread", "attrs",
+                 "id", "parent_id")
 
     def __init__(self, name: str, t0: float, dur: float,
-                 parent: str | None, depth: int, thread: int, attrs: dict):
+                 parent: str | None, depth: int, thread: int, attrs: dict,
+                 id: int = 0, parent_id: int | None = None):
         self.name = name
         self.t0 = t0
         self.dur = dur
@@ -50,11 +62,14 @@ class SpanRecord:
         self.depth = depth
         self.thread = thread
         self.attrs = attrs
+        self.id = id
+        self.parent_id = parent_id
 
     def as_dict(self) -> dict:
         return {"name": self.name, "t0": self.t0, "dur": self.dur,
                 "parent": self.parent, "depth": self.depth,
-                "thread": self.thread, "attrs": self.attrs}
+                "thread": self.thread, "attrs": self.attrs, "id": self.id,
+                "parent_id": self.parent_id}
 
     def __repr__(self) -> str:   # pragma: no cover - debugging aid
         return (f"SpanRecord({self.name!r}, dur={self.dur:.6f}, "
@@ -82,12 +97,13 @@ _NULL_SPAN = _NullSpan()
 class _Span:
     """Active span handle; closes into a `SpanRecord` on exit."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "id")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
+        self.id = next(tracer._ids)
 
     def set(self, **attrs) -> None:
         """Attach attrs mid-span (e.g. a result size known only at the
@@ -96,7 +112,7 @@ class _Span:
 
     def __enter__(self) -> "_Span":
         stack = self._tracer._stack()
-        stack.append(self.name)
+        stack.append(self)
         self._t0 = time.perf_counter()
         return self
 
@@ -105,16 +121,17 @@ class _Span:
         stack = self._tracer._stack()
         # exception safety: pop our own frame even if the body replaced
         # the stack contents via nested tracer misuse
-        if stack and stack[-1] == self.name:
+        if stack and stack[-1] is self:
             stack.pop()
-        elif self.name in stack:   # pragma: no cover - defensive
-            stack.remove(self.name)
+        elif self in stack:   # pragma: no cover - defensive
+            stack.remove(self)
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
         parent = stack[-1] if stack else None
         self._tracer._record(SpanRecord(
-            self.name, self._t0, dur, parent, len(stack),
-            threading.get_ident(), self.attrs))
+            self.name, self._t0, dur, parent.name if parent else None,
+            len(stack), threading.get_ident(), self.attrs, self.id,
+            parent.id if parent else None))
         return False   # never swallow the exception
 
 
@@ -131,6 +148,7 @@ class Tracer:
         self._records: list[SpanRecord] = []
         self._lock = threading.Lock()
         self._local = threading.local()
+        self._ids = itertools.count(1)
 
     # ------------------------------------------------------------ state
     @property
@@ -158,7 +176,7 @@ class Tracer:
             self._records.clear()
             self.dropped = 0
 
-    def _stack(self) -> list[str]:
+    def _stack(self) -> list[_Span]:
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
@@ -197,7 +215,8 @@ class Tracer:
 
     def to_chrome_trace(self, process_name: str = "repro_torch") -> dict:
         """Chrome trace-event JSON: complete (``X``) events in µs, one
-        track per originating thread, openable in Perfetto / about:tracing.
+        track per originating thread, openable in Perfetto / about:tracing;
+        each event's args carry its span's `id` and `parent_id`.
         """
         events: list[dict] = [{
             "name": "process_name", "ph": "M", "pid": 0, "tid": 0,
@@ -208,7 +227,8 @@ class Tracer:
             events.append({
                 "name": rec.name, "ph": "X", "pid": 0, "tid": tid,
                 "ts": rec.t0 * 1e6, "dur": rec.dur * 1e6,
-                "args": {**rec.attrs, "parent": rec.parent}})
+                "args": {**rec.attrs, "parent": rec.parent, "id": rec.id,
+                         "parent_id": rec.parent_id}})
         for ident, tid in threads.items():
             events.append({"name": "thread_name", "ph": "M", "pid": 0,
                            "tid": tid, "args": {"name": f"thread-{ident}"}})

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from conftest import gpt7b_job
+from repro_torch import obs
 from repro_torch.configs import PAPER_WORKLOADS, make_job
 from repro_torch.configs import REGISTRY as ARCHS
 from repro_torch.core.dag import VIRTUAL
@@ -455,17 +456,20 @@ def test_fused_engine_matches_numpy_and_the_round_path(cuda, dag3):
     for s in range(4):
         for i, j in dag3.undirected_pairs():
             xs[s, i, j] = xs[s, j, i] = rng.integers(1, 4)
-    c0 = _counts()
-    ms_f, feas_f = fused.batch_makespan(xs)
-    c1 = _counts()
-    ms_r, feas_r = per_round.batch_makespan(xs)
-    c2 = _counts()
+    # the rounds are counted while tracing is on
+    with obs.enabled():
+        c0 = _counts()
+        ms_f, feas_f = fused.batch_makespan(xs)
+        c1 = _counts()
+        ms_r, feas_r = per_round.batch_makespan(xs)
+        c2 = _counts()
+        ms_p, feas_p = plain.batch_makespan(xs)
+        c3 = _counts()
+    obs.TRACER.clear()
     assert c1[0] == c0[0]                          # no fill_round launch
     assert c1[1] - c0[1] == c1[2] - c0[2] > 0      # one launch per trip
     assert c2[0] - c1[0] == c2[3] - c1[3] > 0      # one launch per round
     assert c2[1] == c1[1]
-    ms_p, feas_p = plain.batch_makespan(xs)
-    c3 = _counts()
     assert c3[:2] == c2[:2]                        # no launch at all
     assert c1[3] - c0[3] == c3[3] - c2[3]          # the same rounds
     np.testing.assert_array_equal(ms_f, ms_p)

@@ -31,6 +31,7 @@ from repro.core import des_jax
 from repro.core.cluster import ClusterSpec
 from repro.core.dag import CommDAG, CommTask, Dep, make_virtual
 from repro.core.schedule import build_comm_dag as jax_build_comm_dag
+from repro_torch import obs
 from repro_torch.convert import des_arrays_from_numpy
 from repro_torch.core.des import DESProblem
 from repro_torch.core.des_torch import (DESArrays, DESOptions, TorchDES,
@@ -270,7 +271,8 @@ def test_ref_and_segment_round_counts_equal(cases, name):
 
 def test_des_round_counter_equal_on_ref_and_segment():
     """`des_fill_rounds_total` counts the same rounds on the fused path's
-    plain version and on the segment path, over whole simulations."""
+    plain version and on the segment path, over whole simulations (it
+    counts while tracing is on)."""
     dag = build_comm_dag(port_job(3))
     prob = DESProblem(dag)
     x = np.zeros((dag.cluster.num_pods,) * 2, dtype=np.int64)
@@ -282,7 +284,9 @@ def test_des_round_counter_equal_on_ref_and_segment():
         td = TorchDES(prob, options=DESOptions(device="cpu",
                                                backend=backend))
         before = counter.value()
-        ms = td.makespan(x)
+        with obs.enabled():
+            ms = td.makespan(x)
+        obs.TRACER.clear()
         got[backend] = (counter.value() - before, ms)
     assert got["ref"][0] == got["segment"][0] > 0
     assert got["ref"][1] == pytest.approx(got["segment"][1], rel=RTOL)
