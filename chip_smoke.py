@@ -181,6 +181,20 @@ inline suppressions by rule, its wall time, and the sanctioned host
 syncs inside TorchDES's event loop (1: the loop's exit test), which
 [des] prints again beside the host syncs per trip it measures.
 
+On the fused path the event loop replays CUDA graphs of GRAPH_TRIPS
+trips, and a replay launches fill_maxmin where the host sees no launch:
+`waterfill.maxmin_launches` counts the launches made from the host (a
+graph's warm-up).  Every fused-path check holds those launches, with
+GRAPH_TRIPS per replay, against the trips the device ran (the trips in
+which some lane ran and the idle ones after every lane had stopped, both
+counted on the device).  [des]'s second profiled fused batch, [plan]'s
+last fused run, the ensemble batches of [robust] and [failsafe] and
+[planes]' spare-stage batch count fill_maxmin's kernels in a device trace,
+closed by TRAILING_KERNELS spin kernels that take any loss of the trace's
+last records, and hold that count against the same trips.  After every phase a [mem] line gives
+the phase's peak device memory, what it left allocated and the trip
+graphs kept.
+
 The kernels phase also holds fill_maxmin's member axis against its plain
 version: a sweep of 1-3 members, and the two members of each [robust]
 ensemble at 96 lanes (the sequence-length pair shares one CSR; the
@@ -244,6 +258,7 @@ ROBUST_GENERATIONS = 3
 # [planes] stages' generations and the [fleet] mixtral-8x22b tenants'
 ROBUST_MB_GENERATIONS = 2
 SINGLES_STRIDE = 8
+TRAILING_KERNELS = 10000   # spin kernels closing a trace whose kernels count
 PLANES = 4              # OCS planes of the [planes] decomposition
 PLANES_GENERATIONS = 2
 FLEET_GENERATIONS = 3   # GA depth of each [fleet] tenant at full width
@@ -1042,6 +1057,18 @@ def kernel_maxplus(dag) -> tuple[dict, int]:
             "library_ms": None}, steps
 
 
+def _trailing_kernels() -> None:
+    """TRAILING_KERNELS short `spin_kernel`s, waited for, at the end of a
+    trace whose kernels are counted: on an H100 a trace can lose the
+    records of its last moments when the profiler stops (at times a
+    fifth of a fitness batch's fill_maxmin records), and these take that
+    loss in place of the counted call's."""
+    import torch
+    for _ in range(TRAILING_KERNELS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def _profile(fn):
     """A torch.profiler trace (host and device) of one call of `fn`."""
     import torch
@@ -1058,24 +1085,68 @@ def _busy_s(prof) -> float:
     """Seconds the device spent in kernels and copies in a trace (0.0 when
     it holds no device time), summed over the profiler's raw events: the
     event tree that `prof.events()` builds takes tens of seconds for a
-    trace of a fitness batch's ~130,000 kernels."""
+    trace of a fitness batch's ~130,000 kernels.  `_trailing_kernels`'
+    spin kernels are not counted."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
     return 1e-9 * sum(ev.end_ns() - ev.start_ns()
                       for ev in prof.profiler.kineto_results.events()
-                      if ev.device_type() == cuda and not ev.is_async())
+                      if ev.device_type() == cuda and not ev.is_async()
+                      and "spin_kernel" not in ev.name())
 
 
-def _device_only_busy_s(fn) -> float:
-    """Seconds the device spent in kernels and copies during one call of
-    `fn`, from a trace of the device alone: no host-side events, so the
-    traced call costs little more than the call itself."""
+def _device_profile(fn, trailing: bool = False):
+    """fn()'s result and a trace of the call on the device alone (no
+    host-side events, so the traced call costs little more than the call
+    itself), with `_trailing_kernels` after it where `trailing`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         torch.cuda.synchronize()
+        if trailing:
+            _trailing_kernels()
+    return out, prof
+
+
+def _kernels_in(prof, name: str) -> int:
+    """The kernels in a trace whose name holds `name`, over the
+    profiler's raw events (each kernel of a replayed CUDA graph is one)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(name in ev.name()
+               for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == cuda)
+
+
+def _traced_launches(tag: str, prof, c: dict, what: str = "traced run"
+                     ) -> int:
+    """fill_maxmin's kernels in the device trace `prof` of a fused-path
+    run against the trips the device ran in it and against the host's
+    launches and replays (`c`, the run's counts from zero); returns the
+    kernels counted."""
+    kernels = _kernels_in(prof, "fill_maxmin_kernel")
+    ran = c["trips"] + c["idle"]
+    log(f"[{tag}] {what}: {kernels} fill_maxmin kernels in the device "
+        f"trace; the device ran {ran:.0f} trips ({c['trips']:.0f} with a "
+        f"lane running, {c['idle']:.0f} idle); the host launched "
+        f"{c['host']} and replayed {c['replays']} graphs; "
+        f"{_kernels_in(prof, 'spin_kernel')} of {TRAILING_KERNELS} trailing "
+        f"kernels recorded")
+    if kernels == 0 or kernels != ran or kernels != c["maxmin"]:
+        fail(f"{tag}: {kernels} fill_maxmin kernels traced, {ran:.0f} "
+             f"trips run, {c['maxmin']} launched or replayed")
+    return kernels
+
+
+def _traced_batch(tag: str, fn) -> float:
+    """The device's busy seconds in a rerun of fused-path batch `fn`
+    traced on the device alone, with its fill_maxmin kernels checked
+    (`_traced_launches`)."""
+    _reset_counts()
+    _, prof = _device_profile(fn, trailing=True)
+    _traced_launches(tag, prof, _counts())
     return _busy_s(prof)
 
 
@@ -1147,11 +1218,18 @@ def _megatron_462b(seq_len: int = 4096, microbatches: int = 128):
 
 
 def _counts():
+    """The launch and trip counts since `_reset_counts`: `maxmin` is
+    fill_maxmin's launches made from the host (`host`) and GRAPH_TRIPS per
+    trip-graph replay; `trips` and `idle` are counted on the device."""
+    from repro_torch.core.des_torch import GRAPH_TRIPS
     from repro_torch.kernels import waterfill
     from repro_torch.obs import REGISTRY
+    replays = int(REGISTRY.counter("des_graph_replays_total").value())
     return {"launches": waterfill.launches,
-            "maxmin": waterfill.maxmin_launches,
+            "maxmin": waterfill.maxmin_launches + GRAPH_TRIPS * replays,
+            "host": waterfill.maxmin_launches, "replays": replays,
             "trips": REGISTRY.counter("des_event_trips_total").value(),
+            "idle": REGISTRY.counter("des_graph_idle_trips_total").value(),
             "rounds": REGISTRY.counter("des_fill_rounds_total").value()}
 
 
@@ -1161,20 +1239,23 @@ def _reset_counts() -> None:
     waterfill.launches = waterfill.maxmin_launches = 0
     tclosure.launches = maxplus.launches = 0
     REGISTRY.counter("des_event_trips_total").reset()
+    REGISTRY.counter("des_graph_idle_trips_total").reset()
+    REGISTRY.counter("des_graph_replays_total").reset()
     REGISTRY.counter("des_fill_rounds_total").reset()
 
 
 def _check_path(name: str, c: dict) -> None:
     """The launch counts of one DES run on `name`'s path: the fused path
-    launches fill_maxmin once per trip and fill_round never; the
-    per-round path fill_round once per round and fill_maxmin never; the
-    plain path neither."""
+    launches fill_maxmin, from the host or in a replay, once per trip the
+    device ran (the trips in which some lane ran and the idle ones after
+    every lane had stopped) and fill_round never; the per-round path fill_round once per round
+    and fill_maxmin never; the plain path neither."""
     if name == "ref":
         if c["maxmin"] or c["launches"] or c["trips"] == 0:
             fail(f"plain path: {c['maxmin']} fill_maxmin and "
                  f"{c['launches']} fill_round launches")
     elif name == "cuda":
-        if c["maxmin"] != c["trips"] or c["trips"] == 0 \
+        if c["maxmin"] != c["trips"] + c["idle"] or c["trips"] == 0 \
                 or c["launches"] != 0:
             fail(f"fused path: {c['maxmin']} fill_maxmin launches for "
                  f"{c['trips']:.0f} trips and {c['launches']} fill_round "
@@ -1304,13 +1385,17 @@ def phase_des(dag, loop_syncs: int) -> None:
         # device (the trip's host ops below); the others' on the device
         # alone, whose trace costs far less to record and read
         first_fused = name == "cuda" and name not in results
+        _reset_counts()             # the profiled rerun's counts
         t0 = time.perf_counter()
         if first_fused:
             prof = _profile(batch)
             prof_wall = time.perf_counter() - t0
-            busy = _busy_s(prof)
         else:
-            busy = _device_only_busy_s(batch)
+            _, prof = _device_profile(batch, trailing=name == "cuda")
+        busy = _busy_s(prof)
+        if name == "cuda" and not first_fused:
+            _traced_launches("des", prof, _counts(),
+                             f"turn {turn} profiled rerun")
         counter = obs.REGISTRY.counter("des_host_syncs_total")
         before = counter.value()
         syncs = _host_syncs(batch)
@@ -1362,9 +1447,10 @@ def phase_des(dag, loop_syncs: int) -> None:
 
 def phase_plan(dag) -> tuple[int, int, object]:
     """plan(delta-fast) at full width on the fused path, on the per-round
-    path, and on the fused path again; returns the fill_maxmin launches
-    of the first fused run, the fill_round launches of the per-round run
-    and the fused runs' topology."""
+    path, and on the fused path again, traced on the device; returns the
+    fill_maxmin kernels in the trace of the last fused run, the
+    fill_round launches of the per-round run and the fused runs'
+    topology."""
     import numpy as np
     from repro_torch import obs
     from repro_torch.core.api import PlanRequest, plan
@@ -1375,17 +1461,26 @@ def phase_plan(dag) -> tuple[int, int, object]:
     for run, name in enumerate(("cuda", "cuda-round", "cuda"), 1):
         obs.TRACER.clear()
         _reset_counts()             # this path's counts start at 0
+        req = PlanRequest(
+            dag=dag, method="delta-fast",
+            ga_options=GAOptions(seed=0, pop_size=48, max_generations=5,
+                                 patience=60, time_limit=1e9),
+            # the fused runs take the default, which is the fused path
+            des_options=DESOptions(backend="auto" if name == "cuda"
+                                   else name))
         t0 = time.perf_counter()
         with obs.enabled():
-            res = plan(PlanRequest(
-                dag=dag, method="delta-fast",
-                ga_options=GAOptions(seed=0, pop_size=48, max_generations=5,
-                                     patience=60, time_limit=1e9),
-                # the fused runs take the default, which is the fused path
-                des_options=DESOptions(backend="auto" if name == "cuda"
-                                       else name)))
+            if run == 3:            # traced on the device
+                res, prof = _device_profile(lambda: plan(req),
+                                            trailing=True)
+            else:
+                res = plan(req)
         wall = time.perf_counter() - t0
         c = _counts()
+        if run == 3:
+            traced = _traced_launches(
+                "plan", prof, c, f"run {run} traced on the device (its wall "
+                f"time includes the trace)")
         spans = obs.TRACER.summary()
         gens = res.details["generations"]
         batches = spans["ga.fitness_batch"]["count"]
@@ -1410,14 +1505,14 @@ def phase_plan(dag) -> tuple[int, int, object]:
                  f"{res.feasible}, makespan {res.makespan}, nct {res.nct}")
         _check_path(name, c)
         results.setdefault(name, []).append((res, c))
-    (a, ca), (b, _) = results["cuda"]
+    (a, _), (b, _) = results["cuda"]
     if not np.array_equal(a.x, b.x) or a.makespan != b.makespan:
         fail("plan() gave different topologies on two runs with one seed")
     r, cr = results["cuda-round"][0]
     log(f"[plan] two fused runs: identical x and makespan; the per-round "
         f"run's x is {'identical' if np.array_equal(a.x, r.x) else 'other'}"
         f" (makespan {float(r.makespan)!r} s)")
-    return ca["maxmin"], cr["launches"], a.x
+    return traced, cr["launches"], a.x
 
 
 def phase_small_parity() -> None:
@@ -1558,7 +1653,8 @@ def _trips_and_launches(tag: str, c: dict, batches: int) -> None:
         f"{c['maxmin']} fill_maxmin launches, {c['launches']} fill_round "
         f"launches; per batch {c['trips'] / max(batches, 1):.1f} trips and "
         f"{c['maxmin'] / max(batches, 1):.1f} launches")
-    if c["maxmin"] != c["trips"] or c["maxmin"] == 0 or c["launches"]:
+    if c["maxmin"] != c["trips"] + c["idle"] or c["maxmin"] == 0 \
+            or c["launches"]:
         fail(f"{tag}: {c['maxmin']} fill_maxmin launches for "
              f"{c['trips']:.0f} trips, {c['launches']} fill_round launches")
 
@@ -1601,7 +1697,7 @@ def _engine_batch(tag: str, eng, space, masks=None) -> None:
     _, feas = batch()
     wall = time.perf_counter() - t0
     c = _counts()
-    busy = _device_only_busy_s(batch)
+    busy = _traced_batch(tag, batch)
     log(f"[{tag}] one batch of {LANES} genomes x {eng.M} members "
         f"({LANES * eng.M} lanes) on EnsembleTorchDES: {wall:.3f} s, "
         f"{c['trips']:.0f} trips ({wall * 1e3 / c['trips']:.3f} ms per "
@@ -1610,7 +1706,7 @@ def _engine_batch(tag: str, eng, space, masks=None) -> None:
         f"on the device, {busy * 1e3 / c['trips']:.4f} ms per trip), idle "
         f"share "
         + (f"{1.0 - busy / wall:.4f}" if busy else "not measured"))
-    if c["maxmin"] != c["trips"] or c["maxmin"] == 0:
+    if c["maxmin"] != c["trips"] + c["idle"] or c["maxmin"] == 0:
         fail(f"{tag} batch: {c['maxmin']} launches for {c['trips']} trips")
 
 
@@ -1827,7 +1923,7 @@ def phase_milp() -> None:
     log(f"[milp] makespan {hot.makespan!r} ({hot.details['comm_time_source']}"
         f"), delta-fast {fast.makespan!r}; validate_solution "
         f"{errors or 'clean'}")
-    if c["maxmin"] == 0 or c["maxmin"] != c["trips"]:
+    if c["maxmin"] == 0 or c["maxmin"] != c["trips"] + c["idle"]:
         fail(f"milp: the hot-start GA made {c['maxmin']} fill_maxmin "
              f"launches in {c['trips']} trips")
     if not hot.feasible or errors \
@@ -1858,7 +1954,8 @@ def phase_resilient() -> None:
         f"{c['maxmin']} fill_maxmin launches in {c['trips']:.0f} trips; "
         f"validate_solution {errors or 'clean'}")
     if res.details["fallback_stage"] != "ga" or c["maxmin"] == 0 \
-            or c["maxmin"] != c["trips"] or errors or not res.feasible:
+            or c["maxmin"] != c["trips"] + c["idle"] or errors \
+            or not res.feasible:
         fail(f"resilient: stage {res.details['fallback_stage']}, launches "
              f"{c['maxmin']} in {c['trips']} trips, errors {errors}")
     log(f"[resilient] phase wall {time.perf_counter() - t_phase:.1f} s")
@@ -2076,12 +2173,12 @@ def phase_planes(dag) -> None:
     batch()
     wall = time.perf_counter() - t0
     c = _counts()
-    busy = _device_only_busy_s(batch)
+    busy = _traced_batch("planes", batch)
     log(f"[planes] one spare-stage batch of {len(batch_states)} lanes: "
         f"{wall:.3f} s, {c['trips']:.0f} trips, {c['maxmin']} fill_maxmin "
         f"launches; device busy {busy:.4f} s, idle share "
         + (f"{1.0 - busy / wall:.4f}" if busy else "not measured"))
-    if c["maxmin"] != c["trips"] or c["maxmin"] == 0:
+    if c["maxmin"] != c["trips"] + c["idle"] or c["maxmin"] == 0:
         fail(f"planes batch: {c['maxmin']} launches for {c['trips']} trips")
     log(f"[planes] phase wall {time.perf_counter() - t_phase:.1f} s")
 
@@ -2179,7 +2276,7 @@ def _fleet_run(workload: str, microbatches: int, generations: int,
     log(f"[fleet] co-tenant certified makespan {model_t.plan.makespan!r}, "
         f"numpy DES {cert.makespan!r}, on the card {card!r} (rel "
         f"{rel:.3e})")
-    if c["launches"] != rounds or c["maxmin"] != c["trips"] \
+    if c["launches"] != rounds or c["maxmin"] != c["trips"] + c["idle"] \
             or c["maxmin"] == 0 or len(checks) < len(planner.history) \
             or not model_t.plan.nct <= cot["nct"] * (1 + 1e-9) \
             or model_t.plan.makespan != cert.makespan \
@@ -2482,7 +2579,8 @@ def phase_examples() -> None:
             f"trips, {c['maxmin']} fill_maxmin launches, {rounds} waterfill"
             f" rounds, {c['launches']} fill_matvec launches; last line "
             f"{last!r}")
-        if rc != 0 or c["maxmin"] != c["trips"] or c["maxmin"] == 0 \
+        if rc != 0 or c["maxmin"] != c["trips"] + c["idle"] \
+                or c["maxmin"] == 0 \
                 or c["launches"] != rounds \
                 or (name == "fleet_realloc" and rounds == 0):
             fail(f"example {name}: rc {rc}, {c['maxmin']} fill_maxmin "
@@ -2813,7 +2911,7 @@ def _train_main() -> dict:
         fail(f"[train] losses: first 5 {losses[:5]}, last 5 {losses[-5:]}")
     if not on_card:
         fail("[train] a state tensor left the card")
-    if c["maxmin"] != c["trips"] or c["maxmin"] == 0:
+    if c["maxmin"] != c["trips"] + c["idle"] or c["maxmin"] == 0:
         fail(f"[train] --plan-topology: {c['maxmin']} fill_maxmin launches "
              f"for {c['trips']:.0f} trips")
     out["maxmin"] = c["maxmin"]
@@ -3397,7 +3495,7 @@ def _dist_legacy_ga() -> int:
         f"evaluations, {c['trips']:.0f} trips, {c['maxmin']} fill_maxmin "
         f"launches; makespan {old.makespan!r} (numpy DES {exact!r}), "
         f"{int(old.x.sum())} ports; the vectorized GA {new.makespan!r}")
-    if c["maxmin"] != c["trips"] or c["maxmin"] == 0:
+    if c["maxmin"] != c["trips"] + c["idle"] or c["maxmin"] == 0:
         fail(f"[dist] legacy GA: {c['maxmin']} fill_maxmin launches for "
              f"{c['trips']:.0f} trips")
     if old.makespan != exact or not new.makespan <= old.makespan * \
@@ -3433,14 +3531,37 @@ def phase_dist(serve_first, train_first: float) -> int:
     return launches
 
 
+def _phase_memory_start() -> int:
+    """Zero the peak of the device memory allocated; return what is
+    allocated now."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _phase_memory(name: str, before: int) -> None:
+    """The phase's peak device memory, what it leaves allocated once its
+    garbage is collected, and the trip graphs the engine cache keeps."""
+    import gc
+    import torch
+    from repro_torch.core import des_torch
+    gc.collect()
+    log(f"[mem] {name}: peak {torch.cuda.max_memory_allocated()} B "
+        f"allocated, {before} -> {torch.cuda.memory_allocated()} B "
+        f"allocated across the phase, {torch.cuda.memory_reserved()} B "
+        f"reserved; {len(des_torch._GRAPHS)} trip graphs kept")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     walls: dict[str, float] = {}
 
     def timed(name: str, fn, *args):
         t0 = time.perf_counter()
+        before = _phase_memory_start()
         out = fn(*args)
         walls[name] = round(time.perf_counter() - t0, 1)
+        _phase_memory(name, before)
         return out
     phase_device()
     import torch

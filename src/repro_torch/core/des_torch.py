@@ -32,18 +32,30 @@ scatters read each lane's own member's arrays.
     `while_loop` selects only the lanes whose condition holds.  (A
     finished lane has t = -inf; stepping it would give NaN.)
 
-On 'cuda' the host reads one flag per event trip and none per filling
-round; the host-driven backends read one flag per round as well.  A trip
-without host syncs (a CUDA graph or a persistent kernel) is later work.
-Nothing is counted inside a trip: each simulation counts its trips and its
-host reads of device values (the exit tests and the rounds read; not the
-host-driven backends' round flags) in local variables and adds them to
+On 'cuda' the event loop runs as a CUDA graph of GRAPH_TRIPS trips
+(`_TripGraph`): the host replays it and reads one exit flag per replay,
+none per trip and none per filling round.  Each trip of the graph also
+stops every lane at `max_events` trips, and trips after every lane has
+stopped change nothing, so the graph gives the eager loop's results to
+the bit.  The eager loop, which reads one flag per trip, serves the other
+backends; the host-driven ones read one flag per round as well.
+
+Nothing is counted inside a trip: each simulation counts its trips (those
+in which some lane ran; on 'cuda' summed on the device and read with the
+exit flag) and its host reads of device values (the exit tests, the
+rounds read; not the host-driven backends' round flags) and adds them to
 `des_event_trips_total` and `des_host_syncs_total` once at its end; the
 entry points' result copies add to `des_host_syncs_total` where they are
-made (`_to_host`).  `des_fill_rounds_total` is kept on
-the device and read once per simulation, and only while the tracer is on
-(decided at the simulation's start), so an untraced trip launches nothing
-for it.
+made (`_to_host`).  `des_fill_rounds_total` is kept on the device and read
+once per simulation, and only while the tracer is on (decided at the
+simulation's start), so an untraced trip launches nothing for it.  On
+'cuda', `des_graph_captures_total` and `des_graph_replays_total` count
+the graphs' work, and `des_graph_idle_trips_total` the trips the device
+ran after every lane had stopped (each still launches `fill_maxmin`):
+the trips taken, counted on the device, less the trips in which some lane
+ran.  `waterfill.maxmin_launches` counts only the launches made from the
+host (the warm-up's); a replay's GRAPH_TRIPS launches are seen in a device
+trace, and the host knows them only as GRAPH_TRIPS per replay.
 
 Problems are padded to quantized (tasks, deps, incidence, links) buckets
 with ghost semantics (`_problem_fields`), so padded results equal the
@@ -51,11 +63,16 @@ exact-shape simulation up to float summation order.  Every construction
 counts its bucket in a module-level LRU of bucket signatures (the
 reference's compile cache): fleet replans, ensemble members and trim
 candidates that land in an existing bucket count as hits, a new bucket as
-a miss (`des_cache_stats()`).  The port compiles nothing per bucket yet,
-so an entry is only its key.
+a miss (`des_cache_stats()`).  An entry holds the bucket's trip graphs on
+'cuda', one per lane count and tracing state, captured at the first
+simulation that needs one; every engine of the bucket replays them on its
+own arrays.  At most GRAPHS_KEPT graphs are kept, the least recently
+replayed dropped first, and a bucket's graphs go with it when it is
+evicted, so the device memory they hold does not grow with the buckets.
 """
 from __future__ import annotations
 
+import functools
 import math
 from collections import OrderedDict
 from collections.abc import Callable
@@ -83,6 +100,8 @@ MAXMIN_BACKENDS = ("auto", "cuda", "cuda-round", "ref", "segment")
 BUCKET_QUANTUM = 64        # tasks, deps and incidence entries round up to this
 BUCKET_QUANTUM_CONS = 8    # link and NIC constraint blocks round up to this
 CACHE_SIZE = 64           # engine-cache buckets kept, least recent evicted
+GRAPH_TRIPS = 16          # event trips per CUDA-graph replay on 'cuda'
+GRAPHS_KEPT = 16          # trip graphs kept on 'cuda', least recent dropped
 
 # float32 coalescing bands of the reference engine (des_jax.py:359-363)
 EPS = 1e-6      # start events: ready <= t * (1 + EPS) + EPS * 1e-3
@@ -92,12 +111,22 @@ VEPS = 1e-5     # completion: remaining volume below VEPS * volume
 TEPS = 1e-5
 
 _TRIPS = get_counter("des_event_trips_total",
-                     "torch DES event-loop trips (batched over lanes)")
+                     "torch DES event-loop trips in which some lane ran "
+                     "(batched over lanes)")
 _ROUNDS = get_counter("des_fill_rounds_total",
                       "torch DES max-min filling rounds (batched over lanes; "
                       "counted while tracing is on)")
 _SYNCS = get_counter("des_host_syncs_total",
-                     "torch DES event-loop host reads of device values")
+                     "torch DES host reads of device values: exit tests (one "
+                     "per trip, or per graph replay on 'cuda'), the rounds "
+                     "read, result copies")
+_CAPTURES = get_counter("des_graph_captures_total",
+                        "torch DES event-trip CUDA graphs captured")
+_REPLAYS = get_counter("des_graph_replays_total",
+                       "torch DES event-trip CUDA graph replays")
+_IDLE_TRIPS = get_counter("des_graph_idle_trips_total",
+                          "torch DES trips a graph or its warm-up ran after "
+                          "every lane had stopped (counted on the device)")
 
 _log = get_logger("repro_torch.des_torch")
 
@@ -128,7 +157,8 @@ class DESOptions:
 
       backend  'auto' -> 'cuda' on a CUDA device, 'ref' on the CPU.
                'cuda': every filling round of a trip in one launch of
-               the fused Hopper kernel (`ops.fill_maxmin`); 'cuda-round':
+               the fused Hopper kernel (`ops.fill_maxmin`), GRAPH_TRIPS
+               trips replayed as one CUDA graph; 'cuda-round':
                one launch of the per-round kernel (`ops.fill_round`) per
                round, driven from the host; 'ref': the fused kernel's
                plain version, bit-equal to it, driven from the host;
@@ -422,7 +452,12 @@ class BucketKey(NamedTuple):
     members: int            # 0 = single problem, M = stacked ensemble
 
 
-_ENGINE_CACHE: OrderedDict[tuple, None] = OrderedDict()
+# (BucketKey, d, e) -> the bucket's trip graphs by (lanes, traced)
+_ENGINE_CACHE: OrderedDict[tuple, dict[tuple[int, bool], "_TripGraph"]] = \
+    OrderedDict()
+# every trip graph the entries hold, least recently replayed first:
+# (id of the entry, (lanes, traced)) -> the entry
+_GRAPHS: OrderedDict[tuple[int, tuple[int, bool]], dict] = OrderedDict()
 
 
 def des_cache_stats() -> dict:
@@ -437,21 +472,26 @@ def des_cache_stats() -> dict:
 
 
 def des_cache_clear() -> None:
+    for entry in _ENGINE_CACHE.values():
+        entry.clear()
     _ENGINE_CACHE.clear()
+    _GRAPHS.clear()
     for c in (_HITS, _MISSES, _EVICTIONS):
         c.reset()
     _ENTRIES.set(0)
 
 
-def _count_bucket(key: BucketKey, pad: PadSpec,
-                  warn_on_miss: bool = False) -> bool:
+def _count_bucket(key: BucketKey, pad: PadSpec, warn_on_miss: bool = False
+                  ) -> tuple[bool, dict[tuple[int, bool], "_TripGraph"]]:
     """Count one construction in its bucket, least recently used evicted
-    first beyond CACHE_SIZE buckets; True where the bucket was there."""
+    first beyond CACHE_SIZE buckets: (whether the bucket was there, its
+    entry, the trip graphs by (lanes, traced) that its engines share)."""
     k = (key, pad.d, pad.e)
-    if k in _ENGINE_CACHE:
+    entry = _ENGINE_CACHE.get(k)
+    if entry is not None:
         _HITS.inc()
         _ENGINE_CACHE.move_to_end(k)
-        return True
+        return True, entry
     # every miss counts whether or not the caller asked for the warning,
     # so the counter is the one authoritative churn signal
     _MISSES.inc()
@@ -460,12 +500,31 @@ def _count_bucket(key: BucketKey, pad: PadSpec,
             "DES engine-cache miss: new bucket n=%d deps=%d inc=%d "
             "cons=%d/%d P=%d members=%d backend=%s device=%s", key.n, pad.d, pad.e, key.num_link_cons,
             key.num_cons, key.P, key.members, key.backend, key.device)
-    _ENGINE_CACHE[k] = None
+    entry = _ENGINE_CACHE[k] = {}
     while len(_ENGINE_CACHE) > CACHE_SIZE:
-        _ENGINE_CACHE.popitem(last=False)
+        _drop_graphs(_ENGINE_CACHE.popitem(last=False)[1])
         _EVICTIONS.inc()
     _ENTRIES.set(len(_ENGINE_CACHE))
-    return False
+    return False, entry
+
+
+def _keep_graph(entry: dict, lanes_traced: tuple[int, bool]) -> None:
+    """Mark an entry's trip graph as the one replayed last, and drop the
+    least recently replayed graphs beyond GRAPHS_KEPT from their entries
+    (an engine of theirs captures again when it next simulates)."""
+    k = (id(entry), lanes_traced)
+    _GRAPHS[k] = entry
+    _GRAPHS.move_to_end(k)
+    while len(_GRAPHS) > GRAPHS_KEPT:
+        (_, old), held = _GRAPHS.popitem(last=False)
+        held.pop(old, None)
+
+
+def _drop_graphs(entry: dict) -> None:
+    """Drop an evicted bucket's trip graphs."""
+    for k in [k for k in _GRAPHS if k[0] == id(entry)]:
+        del _GRAPHS[k]
+    entry.clear()
 
 
 def plane_state_genomes(lane_genomes: np.ndarray) -> np.ndarray:
@@ -492,6 +551,169 @@ def plane_state_genomes(lane_genomes: np.ndarray) -> np.ndarray:
     eff = total - lanes                                 # (..., k, E)
     eff = np.where((eff <= 0) & (total > 0), total / k, eff)
     return np.concatenate([total, eff], axis=-2)        # (..., k+1, E)
+
+
+# -------------------------------------------------------------- event trips
+def _retire_starts(t_now, started, finish, missing, dep_pre, dep_succ,
+                   dep_delta):
+    """Start every pending task whose ready time has arrived at `t_now`
+    (G, M); returns the next pending ready time as well.  `dep_pre`/
+    `dep_succ` are the members' deps expanded to (G, M, d), `dep_delta`
+    their (M, d) lags."""
+    lag = torch.gather(finish, 2, dep_pre) + dep_delta
+    ready = torch.zeros_like(finish)
+    ready.scatter_reduce_(2, dep_succ, lag, "amax", include_self=True)
+    ready = torch.where((missing == 0) & ~started, ready, INF)
+    newly = ready <= (t_now * (1 + EPS) + EPS * 1e-3)[..., None]
+    t_ready = torch.where(newly, INF, ready).amin(-1)
+    return started | newly, newly, ready, t_ready
+
+
+def _outcome(feasible, done, start, finish):
+    """The loop's final state -> (makespan, feasible, start, finish): a
+    lane is feasible where every task is done."""
+    feasible = feasible & done.all(-1)
+    last = torch.where(torch.isfinite(finish), finish, -INF).amax(-1)
+    return torch.where(feasible, last, INF), feasible, start, finish
+
+
+@functools.cache
+def _graph_pool():
+    """The memory pool every trip graph captures into.  `run_trips` keeps
+    none of the tensors it allocates (the state and inputs live outside
+    the pool), so a capture leaves nothing of the pool alive unless a
+    wrapper of `ops.fill_maxmin` holds on to what the captured calls
+    return (such a tensor is overwritten by every replay of its graph):
+    graphs replayed in any order share the pool, and it is as large as
+    the largest capture, however many graphs are kept."""
+    return torch.cuda.graph_pool_handle()
+
+
+class _TripGraph:
+    """Event trips of one bucket at one lane count on static buffers, and
+    on 'cuda' their CUDA graph of GRAPH_TRIPS trips.
+
+    The buffers, all outside the graphs' pool: the inputs, copies of an
+    engine's arrays, its CSR incidence and a simulation's lane capacities
+    (`load`); the loop's state as (G, M) and (G, M, n) tensors; and
+    `status`, on the device: whether any lane still runs, the trips in
+    which some lane ran, the filling rounds (counted where `traced`) and
+    `step`, the trips taken.  Each graph holds its own buffers, about
+    18 bytes per lane and task besides the inputs.  `run_trips` is the body the graph captures:
+    it also runs eagerly, as the warm-up before the capture and on the
+    CPU."""
+
+    def __init__(self, a: DESArrays, csr: tuple[torch.Tensor, ...], g: int,
+                 max_events: int, traced: bool):
+        m, n, dev, f32 = a.volume.shape[0], a.n, a.volume.device, \
+            torch.float32
+        self.max_events, self.traced = max_events, traced
+        self.dep_pre, self.dep_succ, self.dep_delta, self.volume, \
+            self.flows = (torch.empty_like(x) for x in (
+                a.dep_pre, a.dep_succ, a.dep_delta, a.volume, a.flows))
+        self.csr = tuple(torch.empty_like(x) for x in csr)
+        # the rate step on the buffers: the fused kernel for CUDA tensors,
+        # its plain version on the CPU
+        self._fill = functools.partial(ops.fill_maxmin, *self.csr,
+                                       flows=self.flows)
+        self.lane_caps = torch.empty((g * m, a.num_cons), dtype=f32,
+                                     device=dev)
+        self.t, self.t_ready = (torch.empty((g, m), dtype=f32, device=dev)
+                                for _ in range(2))
+        self.feasible = torch.empty((g, m), dtype=torch.bool, device=dev)
+        self.rem, self.start, self.finish = (
+            torch.empty((g, m, n), dtype=f32, device=dev) for _ in range(3))
+        self.started, self.done = (
+            torch.empty((g, m, n), dtype=torch.bool, device=dev)
+            for _ in range(2))
+        self.missing = torch.empty((g, m, n), dtype=torch.int32, device=dev)
+        self.status = torch.zeros(4, dtype=torch.int64, device=dev)
+        self.running, self.trips, self.rounds, self.step = \
+            self.status.unbind()
+        self.graph: torch.cuda.CUDAGraph | None = None
+
+    def load(self, a: DESArrays, csr: tuple[torch.Tensor, ...],
+             lane_caps: torch.Tensor, state: tuple[torch.Tensor, ...]
+             ) -> None:
+        """Copy an engine's arrays and CSR, the lane capacities and the
+        loop's state after the t=0 starts (`_LaneDES._initial`) into the
+        buffers, and zero the status."""
+        for dst, src in zip(
+                (self.dep_pre, self.dep_succ, self.dep_delta, self.volume,
+                 self.flows, *self.csr, self.lane_caps, self.t, self.t_ready,
+                 self.feasible, self.rem, self.started, self.done,
+                 self.start, self.finish, self.missing),
+                (a.dep_pre, a.dep_succ, a.dep_delta, a.volume, a.flows, *csr,
+                 lane_caps, *state)):
+            dst.copy_(src)
+        self.status.zero_()
+
+    def run_trips(self, k: int) -> None:
+        """k event trips in place: the eager loop's trip, with every lane
+        also stopped once `max_events` trips were taken; then the running
+        flag of `status`.  Nothing here runs on the host per trip."""
+        g, m, n = self.rem.shape
+        dep_pre = self.dep_pre.expand(g, m, -1)
+        dep_succ = self.dep_succ.expand(g, m, -1)
+        for _ in range(k):
+            run = torch.isfinite(self.t) & self.feasible \
+                & (self.step < self.max_events)
+            self.step += 1
+            self.trips += run.any()
+            active = self.started & ~self.done
+            rates, lane_rounds = self._fill(
+                (active & run[..., None]).view(g * m, n), self.lane_caps)
+            rates = rates.view(g, m, n)
+            if self.traced:
+                self.rounds += lane_rounds.amax()
+            feas_new = self.feasible & torch.where(active, rates > 0,
+                                                   True).all(-1)
+            dt_done = torch.where(active & (rates > 0), self.rem / rates, INF)
+            t_next = torch.minimum(self.t + dt_done.amin(-1), self.t_ready)
+            dt = (t_next - self.t).clamp_min(0.0)
+            rem_new = torch.where(
+                active, (self.rem - rates * dt[..., None]).clamp_min(0.0),
+                self.rem)
+            dt_rem = dt_done - dt[..., None]
+            newdone = active & torch.isfinite(t_next)[..., None] & (
+                (rem_new <= VEPS * self.volume.clamp_min(1e-9))
+                | (dt_rem <= (TEPS * t_next.clamp_min(1e-9))[..., None]))
+            finish_new = torch.where(newdone, t_next[..., None], self.finish)
+            done_new = self.done | newdone
+            met = torch.zeros((g, m, n), dtype=torch.int32,
+                              device=self.rem.device)
+            met.scatter_add_(2, dep_succ, torch.gather(newdone, 2, dep_pre)
+                             .to(torch.int32))
+            missing_new = self.missing - met
+            started_new, newly, ready, t_ready_new = _retire_starts(
+                t_next, self.started, finish_new, missing_new, dep_pre,
+                dep_succ, self.dep_delta)
+            start_new = torch.where(newly, ready, self.start)
+            t_new = torch.where(done_new.all(-1), -INF, t_next)
+            r = run[..., None]
+            for mask, new, old in (
+                    (run, t_new, self.t), (run, t_ready_new, self.t_ready),
+                    (run, feas_new, self.feasible), (r, rem_new, self.rem),
+                    (r, started_new, self.started), (r, done_new, self.done),
+                    (r, start_new, self.start), (r, finish_new, self.finish),
+                    (r, missing_new, self.missing)):
+                torch.where(mask, new, old, out=old)
+        self.running.copy_((torch.isfinite(self.t) & self.feasible).any()
+                           & (self.step < self.max_events))
+
+    def capture(self) -> None:
+        """Warm up, as CUDA graphs need, with GRAPH_TRIPS eager trips on a
+        side stream (real trips of the simulation loaded), then capture
+        GRAPH_TRIPS trips into `graph`; the capture runs nothing (and
+        `ops.fill_maxmin` counts no launch while a capture records it)."""
+        side = torch.cuda.Stream(self.t.device)
+        side.wait_stream(torch.cuda.current_stream(self.t.device))
+        with torch.cuda.stream(side):
+            self.run_trips(GRAPH_TRIPS)
+        torch.cuda.current_stream(self.t.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=_graph_pool()):
+            self.run_trips(GRAPH_TRIPS)
 
 
 # ------------------------------------------------------------------ engines
@@ -529,16 +751,22 @@ class _LaneDES:
                                cons=a.num_cons)
             self.max_events = int(max_events or default_max_events(a.n))
             self.P = problems[0].dag.cluster.num_pods
-            hit = _count_bucket(
+            # the bucket's trip graphs, shared with its other engines; an
+            # engine whose bucket is evicted keeps them while it lives
+            hit, self._graphs = _count_bucket(
                 BucketKey(n=a.n, num_cons=a.num_cons,
                           num_link_cons=a.num_link_cons, P=self.P,
                           max_events=self.max_events, backend=self.backend,
                           device=str(self.device), members=members),
                 self.pad, self.options.warn_on_miss)
             sp.set(hit=hit)
-            # the rate step, with the incidence it reads built once per
-            # engine and shared by every round of every trip of every lane
-            self._rates = _rate_step(a, self.backend)
+            # the incidence the rate step reads, built once per engine and
+            # shared by every round of every trip of every lane: on 'cuda'
+            # the CSR a trip graph's copy is loaded from, else the rate step
+            if self.backend == "cuda":
+                self._csr = _incidence_csr(a)
+            else:
+                self._rates = _rate_step(a, self.backend)
             # x-independent initial state: virtual task 0 and the padding
             # ghosts are born done at t=0; deps from task 0 are met
             self._started0 = ~a.task_valid
@@ -550,24 +778,11 @@ class _LaneDES:
             self._missing0 = a.indegree - from_virtual
 
     # ------------------------------------------------------------ event loop
-    def _retire_starts(self, t_now, started, finish, missing, dep_pre,
-                       dep_succ):
-        """Start every pending task whose ready time has arrived at
-        `t_now` (G, M); returns the next pending ready time as well.
-        `dep_pre`/`dep_succ` are the members' deps expanded to (G, M, d)."""
-        lag = torch.gather(finish, 2, dep_pre) + self.arrays.dep_delta
-        ready = torch.zeros_like(finish)
-        ready.scatter_reduce_(2, dep_succ, lag, "amax", include_self=True)
-        ready = torch.where((missing == 0) & ~started, ready, INF)
-        newly = ready <= (t_now * (1 + EPS) + EPS * 1e-3)[..., None]
-        t_ready = torch.where(newly, INF, ready).amin(-1)
-        return started | newly, newly, ready, t_ready
-
-    def _simulate(self, xs: torch.Tensor, masks: torch.Tensor,
-                  ideal: bool = False):
-        """(G, P, P) topologies under (M, P, P) link-availability masks ->
-        (makespan, feasible, start, finish), each with leading (G, M), on
-        the device; the caller copies what it returns with `_to_host`."""
+    def _initial(self, xs: torch.Tensor, masks: torch.Tensor, ideal: bool):
+        """The lane capacities (G * M, C) of (G, P, P) topologies under
+        (M, P, P) masks, and the loop's state after the t=0 start events:
+        (t, t_ready, feasible, rem, started, done, start, finish,
+        missing)."""
         a, m = self.arrays, self.M
         g, n, dev, p = xs.shape[0], a.n, self.device, self.P
         f32 = torch.float32
@@ -579,8 +794,6 @@ class _LaneDES:
         caps = torch.cat([link_caps, torch.ones(
             (g, m, a.num_cons - a.num_link_cons), dtype=f32, device=dev)], -1)
         lane_caps = caps.view(g * m, a.num_cons)
-        dep_pre = a.dep_pre.expand(g, m, -1)
-        dep_succ = a.dep_succ.expand(g, m, -1)
 
         rem = a.volume.expand(g, m, n)
         started = self._started0.expand(g, m, n)
@@ -590,12 +803,33 @@ class _LaneDES:
         missing = self._missing0.expand(g, m, n)
         t = torch.zeros((g, m), dtype=f32, device=dev)
         # retire the t=0 start events before the loop
-        started, newly, ready, t_ready = self._retire_starts(
-            t, started, finish, missing, dep_pre, dep_succ)
+        started, newly, ready, t_ready = _retire_starts(
+            t, started, finish, missing, a.dep_pre.expand(g, m, -1),
+            a.dep_succ.expand(g, m, -1), a.dep_delta)
         start = torch.where(newly, ready, start)
         feasible = torch.ones((g, m), dtype=torch.bool, device=dev)
+        return lane_caps, (t, t_ready, feasible, rem, started, done, start,
+                           finish, missing)
+
+    def _simulate(self, xs: torch.Tensor, masks: torch.Tensor,
+                  ideal: bool = False):
+        """(G, P, P) topologies under (M, P, P) link-availability masks ->
+        (makespan, feasible, start, finish), each with leading (G, M), on
+        the device; the caller copies what it returns with `_to_host`.
+        'cuda' replays the bucket's trip graph (`_replay`); the other
+        backends run the loop here, one exit test per trip."""
+        lane_caps, state = self._initial(xs, masks, ideal)
+        traced = TRACER.is_enabled and _ROUNDS.enabled
+        if self.backend == "cuda":
+            return _outcome(*self._replay(lane_caps, state, traced))
+        a, m = self.arrays, self.M
+        t, t_ready, feasible, rem, started, done, start, finish, missing = \
+            state
+        g, n, dev = t.shape[0], a.n, self.device
+        dep_pre = a.dep_pre.expand(g, m, -1)
+        dep_succ = a.dep_succ.expand(g, m, -1)
         rounds = torch.zeros((), dtype=torch.int64, device=dev) \
-            if TRACER.is_enabled and _ROUNDS.enabled else None
+            if traced else None
         trips = syncs = 0       # counted here, added once at the end
 
         for _ in range(self.max_events):
@@ -630,8 +864,9 @@ class _LaneDES:
             missing_new = missing - met
             # retire the start events at t_next in the same trip (readiness
             # against the post-completion finish/missing state)
-            started_new, newly, ready, t_ready_new = self._retire_starts(
-                t_next, started, finish_new, missing_new, dep_pre, dep_succ)
+            started_new, newly, ready, t_ready_new = _retire_starts(
+                t_next, started, finish_new, missing_new, dep_pre, dep_succ,
+                a.dep_delta)
             start_new = torch.where(newly, ready, start)
             t_new = torch.where(done_new.all(-1), -INF, t_next)  # exit flag
 
@@ -651,10 +886,49 @@ class _LaneDES:
             _ROUNDS.inc(int(rounds))          # one host read per simulation
             syncs += 1
         _SYNCS.inc(syncs)
-        feasible = feasible & done.all(-1)
-        last = torch.where(torch.isfinite(finish), finish, -INF).amax(-1)
-        makespan = torch.where(feasible, last, INF)
-        return makespan, feasible, start, finish
+        return _outcome(feasible, done, start, finish)
+
+    def _replay(self, lane_caps, state, traced: bool):
+        """The event loop on 'cuda': the bucket's trip graph for this lane
+        count and tracing state (captured on first use, after its warm-up
+        trips) replayed on this engine's arrays, GRAPH_TRIPS trips per
+        replay and one read of `status` after each; the final (feasible,
+        done, start, finish), start and finish copied out of the graph's
+        buffers.  The idle trips are the trips taken less those in which
+        some lane ran, both counted on the device."""
+        g = state[0].shape[0]
+        key = (g * self.M, traced)
+        tg = self._graphs.get(key)
+        if tg is None:
+            tg = self._graphs[key] = _TripGraph(
+                self.arrays, self._csr, g, self.max_events, traced)
+        _keep_graph(self._graphs, key)
+        tg.load(self.arrays, self._csr, lane_caps, state)
+        replays = syncs = 0
+        # a graph is captured and replayed on its device's current stream
+        with torch.cuda.device(self.device):
+            if tg.graph is None:
+                with span("des.capture", lanes=g * self.M,
+                          trips=GRAPH_TRIPS, traced=traced):
+                    tg.capture()
+                _CAPTURES.inc()
+            else:
+                tg.graph.replay()
+                replays = 1
+            for _ in range(-(-self.max_events // GRAPH_TRIPS)):
+                syncs += 1
+                running, trips, rounds, steps = tg.status.tolist()  # sentinel: ignore[RPR006] one sync per replay: the exit test
+                if not running:
+                    break
+                tg.graph.replay()
+                replays += 1
+        _TRIPS.inc(trips)
+        _IDLE_TRIPS.inc(steps - trips)
+        _REPLAYS.inc(replays)
+        if traced:
+            _ROUNDS.inc(rounds)
+        _SYNCS.inc(syncs)
+        return tg.feasible, tg.done, tg.start.clone(), tg.finish.clone()
 
     def _genome_topologies(self, genomes, edge_u, edge_v) -> torch.Tensor:
         """(G, E) genomes over the pairs (edge_u, edge_v) -> (G, P, P)

@@ -20,6 +20,9 @@ launches the kernel and nothing else: the plain version lives in
 
 `launches` counts `fill_matvec`'s launches and `maxmin_launches`
 `fill_maxmin`'s, so a run can show that its path went through the kernel.
+Both count launches made from the host: a call that a CUDA graph's
+capture records counts none, and neither do the graph's replays, whose
+launches only a device trace shows.
 """
 from __future__ import annotations
 
@@ -164,8 +167,9 @@ def fill_maxmin(con_ptr: torch.Tensor, ent_task: torch.Tensor,
                 con_ptr.data_ptr(), ent_task.data_ptr(), ent_w.data_ptr(),
                 active.data_ptr(), caps.data_ptr(), flows.data_ptr(),
                 rates.data_ptr(), rounds.data_ptr(), s, m, n, c, e, stream)
-        if err != 0:
-            raise RuntimeError(f"waterfill fill_maxmin launch failed: "
-                               f"cudaError {err}")
-        maxmin_launches += 1
+            if err != 0:
+                raise RuntimeError(f"waterfill fill_maxmin launch failed: "
+                                   f"cudaError {err}")
+            if not torch.cuda.is_current_stream_capturing():
+                maxmin_launches += 1
     return rates, rounds

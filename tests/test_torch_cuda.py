@@ -48,7 +48,8 @@ from repro_torch.configs import PAPER_WORKLOADS, make_job
 from repro_torch.configs import REGISTRY as ARCHS
 from repro_torch.core.dag import VIRTUAL
 from repro_torch.core.des import DESProblem, simulate
-from repro_torch.core.des_torch import DESOptions, EnsembleTorchDES, TorchDES
+from repro_torch.core.des_torch import (GRAPH_TRIPS, DESOptions,
+                                        EnsembleTorchDES, TorchDES)
 from repro_torch.core.ga import (GAOptions, PlanesFitness, TopologySpace,
                                  delta_fast)
 from repro_torch.core.pruning import (cal_task_time_windows, dep_weights,
@@ -142,9 +143,9 @@ def test_cuda_engine_matches_numpy(cuda, dag3):
     for s in range(4):
         for i, j in dag3.undirected_pairs():
             xs[s, i, j] = xs[s, j, i] = rng.integers(1, 4)
-    before = waterfill.maxmin_launches
+    before = _maxmin_launches()
     ms_b, feas_b = td.batch_makespan(xs)
-    assert waterfill.maxmin_launches > before
+    assert _maxmin_launches() > before
     for i, x in enumerate(xs):
         r = simulate(prob, x)
         ms, feas, *_ = td.simulate(x)
@@ -434,10 +435,18 @@ def test_fill_maxmin_launches_at_the_shared_memory_limit(cuda):
     assert waterfill.maxmin_launches == before
 
 
+def _maxmin_launches() -> float:
+    """fill_maxmin's launches: those made from the host and GRAPH_TRIPS
+    per replay of a trip graph."""
+    return waterfill.maxmin_launches + GRAPH_TRIPS * REGISTRY.counter(
+        "des_graph_replays_total").value()
+
+
 def _counts():
-    return (waterfill.launches, waterfill.maxmin_launches,
+    return (waterfill.launches, _maxmin_launches(),
             REGISTRY.counter("des_event_trips_total").value(),
-            REGISTRY.counter("des_fill_rounds_total").value())
+            REGISTRY.counter("des_fill_rounds_total").value(),
+            REGISTRY.counter("des_graph_idle_trips_total").value())
 
 
 def test_fused_engine_matches_numpy_and_the_round_path(cuda, dag3):
@@ -467,7 +476,8 @@ def test_fused_engine_matches_numpy_and_the_round_path(cuda, dag3):
         c3 = _counts()
     obs.TRACER.clear()
     assert c1[0] == c0[0]                          # no fill_round launch
-    assert c1[1] - c0[1] == c1[2] - c0[2] > 0      # one launch per trip
+    # one launch per trip, idle graph trips included
+    assert c1[1] - c0[1] == c1[2] - c0[2] + c1[4] - c0[4] > 0
     assert c2[0] - c1[0] == c2[3] - c1[3] > 0      # one launch per round
     assert c2[1] == c1[1]
     assert c3[:2] == c2[:2]                        # no launch at all
@@ -568,7 +578,8 @@ def test_ensemble_engine_on_card(cuda, dag3):
     c0 = _counts()
     ms_f, feas_f = fused.ensemble_genome_makespan(genomes, eu, ev, masks)
     c1 = _counts()
-    assert c1[1] - c0[1] == c1[2] - c0[2] > 0      # one launch per trip
+    # one launch per trip, idle graph trips included
+    assert c1[1] - c0[1] == c1[2] - c0[2] + c1[4] - c0[4] > 0
     ms_p, feas_p = plain.ensemble_genome_makespan(genomes, eu, ev, masks)
     np.testing.assert_array_equal(ms_f, ms_p)
     np.testing.assert_array_equal(feas_f, feas_p)
@@ -609,7 +620,8 @@ def test_plane_state_lanes_on_card(cuda, dag3):
     c0 = _counts()
     got = card.state_makespans(genomes)
     c1 = _counts()
-    assert c1[1] - c0[1] == c1[2] - c0[2] > 0      # one launch per trip
+    # one launch per trip, idle graph trips included
+    assert c1[1] - c0[1] == c1[2] - c0[2] + c1[4] - c0[4] > 0
     assert got.shape == (6, 5, 1) and card.batch_calls == 1
     np.testing.assert_array_equal(got, plain.state_makespans(genomes))
     for g, row in zip(genomes, got):
@@ -709,11 +721,13 @@ def test_cli_on_card_launches_fill_maxmin_and_matches_cpu(cuda, tmp_path):
     from repro_torch.launch import topo_plan
     base = ["--arch", "yi-6b", "--microbatches", "4"]
     trips = REGISTRY.counter("des_event_trips_total")
-    t0, m0 = trips.value(), waterfill.maxmin_launches
+    idle = REGISTRY.counter("des_graph_idle_trips_total")
+    t0, i0, m0 = trips.value(), idle.value(), _maxmin_launches()
     card = topo_plan.main([*base, "--time-limit", "8", "--out",
                            str(tmp_path / "card.json")])
     torch.cuda.synchronize()
-    assert waterfill.maxmin_launches - m0 == trips.value() - t0 > 0
+    assert _maxmin_launches() - m0 == \
+        trips.value() - t0 + idle.value() - i0 > 0
     cpu = topo_plan.main([*base, "--methods",
                           "prop-alloc,sqrt-alloc,iter-halve",
                           "--device", "cpu"])
@@ -741,11 +755,13 @@ def test_jamba_batch_on_card_matches_numpy(cuda):
     assert des.backend == "cuda"
     genomes = space.random_init_batch(np.random.default_rng(0), 48)
     trips = REGISTRY.counter("des_event_trips_total")
-    t0, m0 = trips.value(), waterfill.maxmin_launches
+    idle = REGISTRY.counter("des_graph_idle_trips_total")
+    t0, i0, m0 = trips.value(), idle.value(), _maxmin_launches()
     ms, feas = des.batch_genome_makespan(genomes, space.edge_u,
                                          space.edge_v)
     torch.cuda.synchronize()
-    assert waterfill.maxmin_launches - m0 == trips.value() - t0 > 0
+    assert _maxmin_launches() - m0 == \
+        trips.value() - t0 + idle.value() - i0 > 0
     assert feas.all()
     for g in (0, 47):
         want = simulate(prob, space.to_matrix(genomes[g])).makespan
@@ -756,11 +772,11 @@ def test_jamba_batch_on_card_matches_numpy(cuda):
 def test_example_on_card_returns_zero(cuda, example, capsys):
     import importlib
     mod = importlib.import_module(f"repro_torch.examples.{example}")
-    m0 = waterfill.maxmin_launches
+    m0 = _maxmin_launches()
     rc = mod.main([], fast=True) if example == "quickstart" \
         else mod.main([])
     assert not rc
-    assert waterfill.maxmin_launches > m0
+    assert _maxmin_launches() > m0
     assert capsys.readouterr().out
 
 

@@ -67,10 +67,12 @@ GOLDEN = {
 }
 
 # the host syncs the port sanctions inline, each once per iteration of a
-# loop that needs it (the DES event loop's exit test, the closure's and
-# the max-plus squaring's fixpoint tests, the plain filling's round test)
+# loop that needs it (the DES event loop's exit test per trip, and per
+# replay of its CUDA graph; the closure's and the max-plus squaring's
+# fixpoint tests, the plain filling's round test)
 SANCTIONED_SYNCS = {
     ("src/repro_torch/core/des_torch.py", "_LaneDES._simulate:bool"),
+    ("src/repro_torch/core/des_torch.py", "_LaneDES._replay:tolist"),
     ("src/repro_torch/kernels/ops.py", "transitive_closure:bool"),
     ("src/repro_torch/kernels/ops.py", "longest_paths:if"),
     ("src/repro_torch/kernels/ref.py", "transitive_closure_ref:bool"),
@@ -135,10 +137,11 @@ def test_shipped_tree_is_clean(shipped):
     assert findings == []
     assert {(f.path, f.key) for f in suppressed} == SANCTIONED_SYNCS
     assert {f.rule for f in suppressed} == {"RPR006"}
-    # exactly one sanctioned sync inside TorchDES's event loop
+    # exactly one sanctioned sync in each of TorchDES's event loops: the
+    # eager loop's per trip, the graph's per replay
     assert [f.key for f in suppressed
             if f.path.endswith("core/des_torch.py")] == \
-        ["_LaneDES._simulate:bool"]
+        ["_LaneDES._simulate:bool", "_LaneDES._replay:tolist"]
 
 
 def test_every_suppression_in_the_port_names_its_code_and_reason():
